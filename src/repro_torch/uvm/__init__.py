@@ -1,0 +1,4 @@
+"""UVM substrate of the port: the legacy page-granular simulator (a copy of
+the reference's, the port's own cross-check), the ``cuda`` multi-lane replay
+backend around kernel K1, the prediction cache, and the sweep entry point
+(``python -m repro_torch.uvm.sweep``)."""

@@ -1,0 +1,258 @@
+"""``cuda`` multi-lane replay backend: the host side of kernel K1.
+
+Mirrors the host code of the reference's Pallas backend
+(``repro.uvm.backends.pallas_backend``): many compatible sweep cells pack
+into one lane batch, one lane per cell, traces padded to the longest lane,
+with the same ``fparams``/``iparams`` parameter blocks and the same stats
+layout.  The kernel (``repro_torch.kernels.lane_replay``) runs one thread
+block per lane on the card.
+
+This slice replays the ``demand`` (none/block) and ``learned`` lane
+families under LRU eviction, single-tenant or with shared-capacity tenancy.
+There is no silent fallback: a request this backend declines raises, naming
+the later slice of the port that brings it.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.lane_replay import (N_FPARAMS, N_IPARAMS,
+                                             STAT_FIELDS, lane_replay)
+from repro_torch.traces.trace import ROOT_PAGES
+from repro_torch.uvm.eviction import resolve_tenancy
+from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
+                                         NoPrefetcher, OraclePrefetcher,
+                                         Prefetcher, TreePrefetcher)
+from repro_torch.uvm.replay_core import (ReplayBackend, ReplayRequest,
+                                         UVMStats, _tenant_accesses,
+                                         cycles_per_access, dense_bounds)
+
+#: lane-family kind per exact prefetcher type (the reference's map)
+FAMILY_BY_TYPE = {
+    NoPrefetcher: "demand",
+    BlockPrefetcher: "demand",
+    TreePrefetcher: "tree",
+    LearnedPrefetcher: "learned",
+    OraclePrefetcher: "oracle",
+}
+
+#: lane families K1 replays in this slice of the port
+PORTED_FAMILIES = ("demand", "learned")
+PORTED_POLICIES = ("lru",)
+
+#: hard per-lane page-span ceiling
+MAX_LANE_SPAN_PAGES = 1 << 20
+
+#: lane-batch shape budgets: lanes per kernel launch, total padded state
+#: (lanes x span pages) and total padded trace positions (lanes x t_max)
+MAX_LANES_PER_BATCH = 32
+MAX_BATCH_STATE_PAGES = 1 << 23
+MAX_BATCH_ACCESSES = 1 << 24
+
+#: per-lane trace-length ceiling: the kernel's LRU stamps and counters are
+#: int32, and demand/learned lanes grow the touch counter by at most
+#: 1 + 16 + 1 per access (2^24 * 18 < 2^31)
+MAX_LANE_ACCESSES = MAX_BATCH_ACCESSES
+_FAMILY_MAX_ACCESSES = {"demand": MAX_LANE_ACCESSES,
+                        "learned": MAX_LANE_ACCESSES}
+
+
+def lane_family(pf: Prefetcher) -> Optional[str]:
+    """Lane-family bucket of a prefetcher, or None when unpackable (exact
+    type: subclasses are unpackable, as in the reference)."""
+    family = FAMILY_BY_TYPE.get(type(pf))
+    if family == "oracle":
+        return f"oracle/{int(pf.lookahead)}"
+    return family
+
+
+def _bucket(n: int, floor: int) -> int:
+    """Round up to the next power of two (>= floor)."""
+    b = max(floor, 1)
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _lane_shape(request: ReplayRequest) -> Tuple[str, str, int, int]:
+    """(family, eviction policy, length, span) of one request's lane."""
+    lo, hi = dense_bounds(request.trace, request.prefetcher)
+    return (lane_family(request.prefetcher) or "unpackable",
+            request.config.eviction, len(request.trace.pages), hi - lo)
+
+
+def decline_reason(request: ReplayRequest) -> Optional[str]:
+    """Why K1 cannot replay ``request`` in this slice, or None if it can."""
+    pf = request.prefetcher
+    family = lane_family(pf)
+    if family is None:
+        return f"prefetcher {type(pf).__name__} has no lane family"
+    kind = family.split("/")[0]
+    if kind not in PORTED_FAMILIES:
+        return (f"{kind} lanes are a later slice of the port (this slice "
+                f"replays {', '.join(PORTED_FAMILIES)})")
+    if request.config.eviction not in PORTED_POLICIES:
+        return (f"eviction={request.config.eviction!r} is a later slice of "
+                "the port (this slice replays lru)")
+    if request.record_timeline:
+        return "per-transfer timelines are a later slice of the port"
+    if request.step_bounds is not None:
+        return "step-clock capture is a later slice of the port"
+    tenancy = resolve_tenancy(request.trace, request.config)
+    if tenancy is not None and tenancy.split:
+        return "per-tenant quotas are a later slice of the port"
+    n = len(request.trace.pages)
+    if n == 0 or n > _FAMILY_MAX_ACCESSES[kind]:
+        return f"trace length {n} outside 1..{_FAMILY_MAX_ACCESSES[kind]}"
+    if kind == "learned" and len(pf.predicted_pages) < n:
+        return "the learned decision stream is shorter than the trace"
+    lo, hi = dense_bounds(request.trace, pf)
+    if lo < 0 or hi - lo > min(request.max_span_pages, MAX_LANE_SPAN_PAGES):
+        return f"page span [{lo}, {hi}) outside the lane ceiling"
+    return None
+
+
+class CudaReplayBackend(ReplayBackend):
+    name = "cuda"
+
+    def can_replay(self, request: ReplayRequest) -> bool:
+        return decline_reason(request) is None
+
+    @staticmethod
+    def fits_batch(shapes: Sequence[Tuple[str, str, int, int]],
+                   shape: Tuple[str, str, int, int]) -> bool:
+        """True if a lane of ``shape`` fits a batch that already holds lanes
+        of ``shapes``: family- and policy-homogeneous, within the lane-count,
+        padded-state and padded-access budgets."""
+        fam, pol, t, sp = shape
+        if any(f != fam or p != pol for f, p, _, _ in shapes):
+            return False
+        n = len(shapes) + 1
+        t = max([t] + [s[2] for s in shapes])
+        sp = max([sp] + [s[3] for s in shapes])
+        return (n <= MAX_LANES_PER_BATCH
+                and n * sp <= MAX_BATCH_STATE_PAGES
+                and n * t <= MAX_BATCH_ACCESSES)
+
+    def pack_lanes(self, requests: Sequence[ReplayRequest]
+                   ) -> List[List[int]]:
+        """Group request indices into homogeneous lane batches: sorted by
+        (family, policy, length, span), then packed greedily under
+        :meth:`fits_batch`.  Deterministic in the request order."""
+        order = sorted(range(len(requests)),
+                       key=lambda i: _lane_shape(requests[i]), reverse=True)
+        batches: List[List[int]] = []
+        cur: List[int] = []
+        cur_shapes: List[Tuple[str, str, int, int]] = []
+        for i in order:
+            shape = _lane_shape(requests[i])
+            if cur and not self.fits_batch(cur_shapes, shape):
+                batches.append(cur)
+                cur, cur_shapes = [], []
+            cur.append(i)
+            cur_shapes.append(shape)
+        if cur:
+            batches.append(cur)
+        return batches
+
+    def replay(self, requests: Sequence[ReplayRequest]) -> List[UVMStats]:
+        for req in requests:
+            reason = decline_reason(req)
+            if reason is not None:
+                raise ValueError(f"cuda backend cannot replay "
+                                 f"{req.trace.name}: {reason}")
+        out: List[UVMStats] = [None] * len(requests)  # type: ignore
+        for batch in self.pack_lanes(requests):
+            for i, stats in zip(batch, self._replay_batch(
+                    [requests[i] for i in batch])):
+                out[i] = stats
+        return out
+
+    def pack_batch(self, requests: Sequence[ReplayRequest]):
+        """The kernel inputs of one homogeneous lane batch, as numpy arrays:
+        ``(pages, preds or None, fparams, iparams, span, buf_len)``."""
+        families = {lane_family(r.prefetcher) for r in requests}
+        policies = {r.config.eviction for r in requests}
+        if len(families) != 1 or len(policies) != 1:
+            raise ValueError(f"lane batch must be family- and policy-"
+                             f"homogeneous, got {families} / {policies}")
+        kind = families.pop()
+        lanes = len(requests)
+        shapes = [_lane_shape(r) for r in requests]
+        t_max = _bucket(max(t for _, _, t, _ in shapes), 64)
+        span = _bucket(max(s for _, _, _, s in shapes), ROOT_PAGES)
+        buf_len = max(int(r.config.mshr_entries) for r in requests) + 1
+        n_lanes = _bucket(lanes, 1)
+
+        pages = np.zeros((n_lanes, t_max), dtype=np.int32)
+        fparams = np.zeros((n_lanes, N_FPARAMS), dtype=np.float64)
+        iparams = np.full((n_lanes, N_IPARAMS), -1, dtype=np.int32)
+        iparams[:, 0] = 0                       # padding lanes replay nothing
+        iparams[:, 6] = np.iinfo(np.int32).max  # single-tenant boundary
+        preds = (np.full((n_lanes, t_max), -1, dtype=np.int32)
+                 if kind == "learned" else None)
+        for lane, req in enumerate(requests):
+            trace, cfg, pf = req.trace, req.config, req.prefetcher
+            pf.reset()
+            n = len(trace.pages)
+            lo, _ = dense_bounds(trace, pf)
+            pages[lane, :n] = np.asarray(trace.pages, dtype=np.int64) - lo
+            fparams[lane] = (
+                cycles_per_access(trace, cfg), cfg.page_transfer_cycles,
+                cfg.far_fault_cycles, cfg.page_table_walk_cycles,
+                cfg.pcie_latency_cycles, cfg.prefetch_overhead_cycles,
+                pf.extra_latency_cycles, cfg.page_size)
+            has_block = (type(pf) is BlockPrefetcher
+                         or (type(pf) is LearnedPrefetcher
+                             and pf.prefetch_block))
+            iparams[lane, :4] = (
+                n, -1 if cfg.device_pages is None else int(cfg.device_pages),
+                int(cfg.mshr_entries), 1 if has_block else 0)
+            iparams[lane, 5] = np.array(lo & 0xFFFFFFFF,
+                                        dtype=np.uint32).astype(np.int32)
+            tn = resolve_tenancy(trace, cfg)
+            if tn is not None:
+                # dense boundary (may fall outside [0, span) when the slice
+                # touches one tenant only: the compares stay correct)
+                iparams[lane, 6] = int(tn.boundary) - lo
+            if preds is not None:
+                pr = np.asarray(pf.predicted_pages, dtype=np.int64)[:n]
+                preds[lane, :n] = np.where(pr >= 0, pr - lo, -1)
+        return pages, preds, fparams, iparams, span, buf_len
+
+    def _replay_batch(self, requests: Sequence[ReplayRequest]
+                      ) -> List[UVMStats]:
+        """Replay one homogeneous lane batch: pack, launch, unpack."""
+        pages, preds, fparams, iparams, span, buf_len = self.pack_batch(
+            requests)
+        dev = torch.device(self.device)
+        raw = lane_replay(
+            torch.as_tensor(pages, device=dev),
+            None if preds is None else torch.as_tensor(preds, device=dev),
+            torch.as_tensor(fparams, device=dev),
+            torch.as_tensor(iparams, device=dev), span, buf_len).cpu().numpy()
+        out = []
+        for lane, req in enumerate(requests):
+            row = raw[lane]
+            stats = UVMStats(
+                name=req.trace.name, prefetcher=req.prefetcher.name,
+                n_accesses=len(req.trace.pages),
+                n_instructions=req.trace.n_instructions,
+                cycles=float(row[0]), hits=int(row[1]), late=int(row[2]),
+                faults=int(row[3]), prefetch_issued=int(row[4]),
+                prefetch_used=int(row[5]), pages_migrated=int(row[6]),
+                pages_evicted=int(row[7]), pcie_bytes=float(row[8]),
+                zero_copy_bytes=0.0, timeline=None,
+                eviction=req.config.eviction)
+            stats.backend = self.name
+            tenancy = resolve_tenancy(req.trace, req.config)
+            if tenancy is not None:
+                th0 = int(row[len(STAT_FIELDS)])
+                stats.tenant_hits = (th0, stats.hits - th0)
+                stats.tenant_accesses = _tenant_accesses(req.trace.pages,
+                                                         tenancy)
+            out.append(stats)
+        return out

@@ -1,0 +1,126 @@
+"""The port's sweep entry point and prediction cache: the slice's cells
+expand, run and write rows with the reference's columns; cells outside the
+slice raise; prediction arrays are keyed apart from the JAX package's and
+stored with a checksum."""
+import csv
+import os
+import warnings
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.uvm import predcache as ref_predcache
+from repro.uvm import sweep as ref_sweep
+from repro_torch.core.service import PredictorService
+from repro_torch.uvm import predcache, sweep
+
+
+@pytest.fixture(scope="module")
+def trace():
+    return sweep.load_trace("ATAX", 0.25, 0, 0.6)
+
+
+def test_row_schema_is_the_reference_schema():
+    assert sweep.SWEEP_VERSION == ref_sweep.SWEEP_VERSION
+    assert sweep.ROW_FIELDS == ref_sweep.ROW_FIELDS
+    assert ([f.name for f in sweep.SweepCell.__dataclass_fields__.values()]
+            == [f.name for f in ref_sweep.SweepCell.__dataclass_fields__
+                .values()])
+
+
+def test_expand_grid_order():
+    cells = sweep.expand_grid(["ATAX", "NW"], ["none", "learned"],
+                              device_fracs=[None, 0.5], service_steps=7)
+    assert [(c.bench, c.prefetcher, c.device_frac) for c in cells] == [
+        (b, p, f) for b in ("ATAX", "NW") for p in ("none", "learned")
+        for f in (None, 0.5)]
+    assert all(c.service_steps == 7 and c.backend == "cuda" for c in cells)
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"prefetcher": "tree"}, "prefetcher 'tree'"),
+    ({"prefetcher": "oracle"}, "prefetcher 'oracle'"),
+    ({"eviction": "random"}, "eviction 'random'"),
+    ({"eviction": "adaptive"}, "eviction 'adaptive'"),
+    ({"bench": "ATAX+Pathfinder"}, "later slice"),
+    ({"capacity_split": "0.5/0.5"}, "capacity splits"),
+    ({"backend": "numpy"}, "backend 'numpy'"),
+])
+def test_cells_outside_the_slice_raise(change, match):
+    cell = sweep.SweepCell(**{"bench": "ATAX", "prefetcher": "none",
+                              **change})
+    with pytest.raises(ValueError, match=match):
+        sweep.run_sweep([cell], device="cpu")
+
+
+def test_demand_sweep_writes_rows(tmp_path):
+    cells = sweep.expand_grid(["ATAX", "2DCONV"], ["none", "block"],
+                              scales=[0.25], device_fracs=[None, 0.5])
+    rows = sweep.run_sweep(cells, out_dir=str(tmp_path), device="cpu")
+    assert len(rows) == 8
+    for cell, row in zip(cells, rows):
+        assert (row["bench"], row["prefetcher"], row["device_frac"]) == (
+            cell.bench, cell.prefetcher, cell.device_frac)
+        assert row["backend"] == "cuda" and row["eviction"] == "lru"
+        assert row["hits"] + row["late"] + row["faults"] == row["n_accesses"]
+        assert (row["device_pages"] is None) == (cell.device_frac is None)
+    # oversubscription evicts; a block prefetcher issues prefetches
+    assert all(r["pages_evicted"] > 0 for r in rows if r["device_frac"])
+    assert all(r["prefetch_issued"] > 0 for r in rows
+               if r["prefetcher"] == "block")
+    with open(os.path.join(tmp_path, "results.csv")) as f:
+        got = list(csv.DictReader(f))
+    assert list(got[0]) == sweep.ROW_FIELDS and len(got) == 8
+
+
+def test_sweep_cli(tmp_path, capsys):
+    sweep.main(["--benches", "2DCONV", "--prefetchers", "none",
+                "--scales", "0.25", "--device-fracs", "0.5",
+                "--device", "cpu", "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "2 cells" in out and "2DCONV,none,0.5000,lru,cuda" in out
+    assert os.path.exists(os.path.join(tmp_path, "results.json"))
+
+
+def test_predictions_key_has_the_torch_tag(trace):
+    svc = PredictorService(steps=5, device="cpu")
+    fields = {f: getattr(svc, f) for f in predcache.SERVICE_KEY_FIELDS}
+    assert predcache.SERVICE_KEY_FIELDS == ref_predcache.SERVICE_KEY_FIELDS
+    key = predcache.predictions_key(trace, **fields)
+    assert key != ref_predcache.predictions_key(trace, **fields)
+    assert key == predcache.predictions_key(trace, **fields)
+    other = dict(fields, model_family="transformer")
+    assert predcache.predictions_key(trace, **other) != key
+
+
+def test_store_load_roundtrip_and_quarantine(tmp_path):
+    preds = np.arange(100, dtype=np.int64) - 3
+    predcache.store(str(tmp_path), "k1", preds)
+    got = predcache.load(str(tmp_path), "k1")
+    assert np.array_equal(got, preds) and not got.flags.writeable
+    assert predcache.load(str(tmp_path), "missing") is None
+    path = os.path.join(tmp_path, "preds_k1.npz")
+    with open(path, "r+b") as f:
+        f.seek(200)
+        f.write(b"\xff" * 16)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        assert predcache.load(str(tmp_path), "k1") is None
+    assert os.path.exists(path + ".corrupt") and not os.path.exists(path)
+
+
+def test_get_or_train_trains_once(trace, tmp_path):
+    predcache.clear_memo()
+    kw = dict(steps=3, cache_dir=str(tmp_path), device="cpu")
+    timings = {}
+    a = predcache.get_or_train(trace, timings=timings, **kw)
+    assert timings["train_s"] > 0 and timings["predict_s"] > 0
+    assert a.shape == (len(trace),) and a.dtype == np.int64
+    again = {}
+    assert predcache.get_or_train(trace, timings=again, **kw) is a
+    assert again == {}                      # served by the memo
+    predcache.clear_memo()
+    b = predcache.get_or_train(trace, timings=again, **kw)
+    assert again == {} and np.array_equal(a, b)   # served by the disk store
