@@ -3,23 +3,28 @@
 Mirrors the host code of the reference's Pallas backend
 (``repro.uvm.backends.pallas_backend``): many compatible sweep cells pack
 into one lane batch, one lane per cell, traces padded to the longest lane,
-with the same ``fparams``/``iparams`` parameter blocks and the same stats
-layout.  The kernel (``repro_torch.kernels.lane_replay``) runs one thread
-block per lane on the card.
+with the same ``fparams``/``iparams`` parameter blocks, the same oracle
+input streams and the same stats layout.  The kernel
+(``repro_torch.kernels.lane_replay``) runs one thread block per lane on the
+card.
 
-This slice replays the ``demand`` (none/block) and ``learned`` lane
-families under LRU eviction, single-tenant or with shared-capacity tenancy.
-There is no silent fallback: a request this backend declines raises, naming
-the later slice of the port that brings it.
+This backend replays every single-tenant lane family (``demand``,
+``tree``, ``learned``, ``oracle``) under the ``lru``, ``random`` and
+``hotcold`` eviction policies, single-tenant or with shared-capacity
+tenancy.  There is no silent fallback: a request this backend declines
+(step clocks, timelines, tenant quotas, lanes past the kernel's ceilings)
+raises, naming the later slice of the port that brings it.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.lane_replay import (N_FPARAMS, N_IPARAMS,
+from repro_torch.kernels.lane_replay import (MAX_ORACLE_LOOKAHEAD,
+                                             N_FPARAMS, N_IPARAMS,
                                              STAT_FIELDS, lane_replay)
 from repro_torch.traces.trace import ROOT_PAGES
 from repro_torch.uvm.eviction import resolve_tenancy
@@ -39,9 +44,9 @@ FAMILY_BY_TYPE = {
     OraclePrefetcher: "oracle",
 }
 
-#: lane families K1 replays in this slice of the port
-PORTED_FAMILIES = ("demand", "learned")
-PORTED_POLICIES = ("lru",)
+#: lane families and eviction policies K1 replays
+PORTED_FAMILIES = ("demand", "tree", "learned", "oracle")
+PORTED_POLICIES = ("lru", "random", "hotcold")
 
 #: hard per-lane page-span ceiling
 MAX_LANE_SPAN_PAGES = 1 << 20
@@ -52,17 +57,22 @@ MAX_LANES_PER_BATCH = 32
 MAX_BATCH_STATE_PAGES = 1 << 23
 MAX_BATCH_ACCESSES = 1 << 24
 
-#: per-lane trace-length ceiling: the kernel's LRU stamps and counters are
-#: int32, and demand/learned lanes grow the touch counter by at most
-#: 1 + 16 + 1 per access (2^24 * 18 < 2^31)
+#: per-lane trace-length ceilings: the kernel's stamps and touch counter
+#: are int32.  Demand/learned/oracle lanes grow the counter by at most
+#: 1 + 16 + 16 (+1 in-flight retouch) per access (2^24 * 34 < 2^31); a tree
+#: fault can stamp a whole 2 MB root window (up to 512 per access), so tree
+#: lanes cap at 2^21 (2^21 * 513 < 2^31).
 MAX_LANE_ACCESSES = MAX_BATCH_ACCESSES
+MAX_TREE_LANE_ACCESSES = 1 << 21
 _FAMILY_MAX_ACCESSES = {"demand": MAX_LANE_ACCESSES,
-                        "learned": MAX_LANE_ACCESSES}
-
+                        "tree": MAX_TREE_LANE_ACCESSES,
+                        "learned": MAX_LANE_ACCESSES,
+                        "oracle": MAX_LANE_ACCESSES}
 
 def lane_family(pf: Prefetcher) -> Optional[str]:
     """Lane-family bucket of a prefetcher, or None when unpackable (exact
-    type: subclasses are unpackable, as in the reference)."""
+    type: subclasses are unpackable, as in the reference).  Oracle lanes
+    carry their lookahead, so a batch never mixes window widths."""
     family = FAMILY_BY_TYPE.get(type(pf))
     if family == "oracle":
         return f"oracle/{int(pf.lookahead)}"
@@ -85,34 +95,72 @@ def _lane_shape(request: ReplayRequest) -> Tuple[str, str, int, int]:
 
 
 def decline_reason(request: ReplayRequest) -> Optional[str]:
-    """Why K1 cannot replay ``request`` in this slice, or None if it can."""
+    """Why K1 cannot replay ``request``, or None if it can."""
     pf = request.prefetcher
     family = lane_family(pf)
     if family is None:
         return f"prefetcher {type(pf).__name__} has no lane family"
     kind = family.split("/")[0]
-    if kind not in PORTED_FAMILIES:
-        return (f"{kind} lanes are a later slice of the port (this slice "
-                f"replays {', '.join(PORTED_FAMILIES)})")
     if request.config.eviction not in PORTED_POLICIES:
-        return (f"eviction={request.config.eviction!r} is a later slice of "
-                "the port (this slice replays lru)")
+        return (f"eviction={request.config.eviction!r} is not a K1 policy "
+                f"({', '.join(PORTED_POLICIES)}); the adaptive pseudo-policy "
+                "is resolved by the sweep in a later slice of the port")
     if request.record_timeline:
         return "per-transfer timelines are a later slice of the port"
     if request.step_bounds is not None:
-        return "step-clock capture is a later slice of the port"
+        return ("step-clock capture is a later slice of the port (the "
+                "serve scenarios)")
     tenancy = resolve_tenancy(request.trace, request.config)
     if tenancy is not None and tenancy.split:
-        return "per-tenant quotas are a later slice of the port"
+        return ("per-tenant quotas are a later slice of the port (the mt "
+                "scenarios)")
     n = len(request.trace.pages)
     if n == 0 or n > _FAMILY_MAX_ACCESSES[kind]:
-        return f"trace length {n} outside 1..{_FAMILY_MAX_ACCESSES[kind]}"
+        return (f"trace length {n} outside 1..{_FAMILY_MAX_ACCESSES[kind]} "
+                f"(the {kind} family's int32 stamp ceiling); longer lanes "
+                "need the NumPy chunked engine, a later slice of the port")
     if kind == "learned" and len(pf.predicted_pages) < n:
         return "the learned decision stream is shorter than the trace"
+    if kind == "oracle" and not 0 < pf.lookahead <= MAX_ORACLE_LOOKAHEAD:
+        return (f"oracle lookahead {pf.lookahead} outside "
+                f"1..{MAX_ORACLE_LOOKAHEAD} (one thread per window entry); "
+                "wider windows need the NumPy chunked engine, a later slice "
+                "of the port")
     lo, hi = dense_bounds(request.trace, pf)
     if lo < 0 or hi - lo > min(request.max_span_pages, MAX_LANE_SPAN_PAGES):
         return f"page span [{lo}, {hi}) outside the lane ceiling"
     return None
+
+
+@dataclasses.dataclass
+class LaneBatch:
+    """The kernel inputs of one homogeneous lane batch, as numpy arrays
+    (``preds`` only for learned lanes, ``ft``/``pos`` only for oracle
+    lanes)."""
+
+    family: str                  # kernel kind: demand/tree/learned/oracle
+    policy: str
+    pages: np.ndarray
+    fparams: np.ndarray
+    iparams: np.ndarray
+    span: int
+    buf_len: int
+    preds: Optional[np.ndarray] = None
+    ft: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None
+    lookahead: int = 0
+
+    def kernel_args(self, device) -> Dict:
+        """Keyword arguments of :func:`lane_replay` on ``device``."""
+        dev = torch.device(device)
+
+        def t(a):
+            return None if a is None else torch.as_tensor(a, device=dev)
+        return dict(pages=t(self.pages), preds=t(self.preds),
+                    fparams=t(self.fparams), iparams=t(self.iparams),
+                    span=self.span, buf_len=self.buf_len,
+                    family=self.family, policy=self.policy, ft=t(self.ft),
+                    pos=t(self.pos), lookahead=self.lookahead)
 
 
 class CudaReplayBackend(ReplayBackend):
@@ -171,15 +219,16 @@ class CudaReplayBackend(ReplayBackend):
                 out[i] = stats
         return out
 
-    def pack_batch(self, requests: Sequence[ReplayRequest]):
-        """The kernel inputs of one homogeneous lane batch, as numpy arrays:
-        ``(pages, preds or None, fparams, iparams, span, buf_len)``."""
+    def pack_batch(self, requests: Sequence[ReplayRequest]) -> LaneBatch:
+        """The kernel inputs of one homogeneous lane batch."""
         families = {lane_family(r.prefetcher) for r in requests}
         policies = {r.config.eviction for r in requests}
         if len(families) != 1 or len(policies) != 1:
             raise ValueError(f"lane batch must be family- and policy-"
                              f"homogeneous, got {families} / {policies}")
-        kind = families.pop()
+        family = families.pop()
+        kind = family.split("/")[0]
+        lookahead = int(family.split("/")[1]) if kind == "oracle" else 0
         lanes = len(requests)
         shapes = [_lane_shape(r) for r in requests]
         t_max = _bucket(max(t for _, _, t, _ in shapes), 64)
@@ -187,20 +236,31 @@ class CudaReplayBackend(ReplayBackend):
         buf_len = max(int(r.config.mshr_entries) for r in requests) + 1
         n_lanes = _bucket(lanes, 1)
 
-        pages = np.zeros((n_lanes, t_max), dtype=np.int32)
-        fparams = np.zeros((n_lanes, N_FPARAMS), dtype=np.float64)
-        iparams = np.full((n_lanes, N_IPARAMS), -1, dtype=np.int32)
+        batch = LaneBatch(
+            family=kind, policy=policies.pop(),
+            pages=np.zeros((n_lanes, t_max), dtype=np.int32),
+            fparams=np.zeros((n_lanes, N_FPARAMS), dtype=np.float64),
+            iparams=np.full((n_lanes, N_IPARAMS), -1, dtype=np.int32),
+            span=span, buf_len=buf_len, lookahead=lookahead)
+        iparams = batch.iparams
         iparams[:, 0] = 0                       # padding lanes replay nothing
         iparams[:, 6] = np.iinfo(np.int32).max  # single-tenant boundary
-        preds = (np.full((n_lanes, t_max), -1, dtype=np.int32)
-                 if kind == "learned" else None)
+        if kind == "learned":
+            batch.preds = np.full((n_lanes, t_max), -1, dtype=np.int32)
+        if kind == "oracle":
+            # padded first-touch entries point at the trash slot ``span``
+            ft_len = _bucket(max(len(r.prefetcher.ft_pages)
+                                 for r in requests), 64) + lookahead
+            batch.ft = np.full((n_lanes, ft_len), span, dtype=np.int32)
+            batch.pos = np.zeros((n_lanes, t_max), dtype=np.int32)
         for lane, req in enumerate(requests):
             trace, cfg, pf = req.trace, req.config, req.prefetcher
             pf.reset()
             n = len(trace.pages)
             lo, _ = dense_bounds(trace, pf)
-            pages[lane, :n] = np.asarray(trace.pages, dtype=np.int64) - lo
-            fparams[lane] = (
+            batch.pages[lane, :n] = np.asarray(trace.pages,
+                                               dtype=np.int64) - lo
+            batch.fparams[lane] = (
                 cycles_per_access(trace, cfg), cfg.page_transfer_cycles,
                 cfg.far_fault_cycles, cfg.page_table_walk_cycles,
                 cfg.pcie_latency_cycles, cfg.prefetch_overhead_cycles,
@@ -211,6 +271,8 @@ class CudaReplayBackend(ReplayBackend):
             iparams[lane, :4] = (
                 n, -1 if cfg.device_pages is None else int(cfg.device_pages),
                 int(cfg.mshr_entries), 1 if has_block else 0)
+            # lane lo mod 2^32 (int32 bit pattern): random-policy draws
+            # hash the absolute page id, identical across backends
             iparams[lane, 5] = np.array(lo & 0xFFFFFFFF,
                                         dtype=np.uint32).astype(np.int32)
             tn = resolve_tenancy(trace, cfg)
@@ -218,22 +280,24 @@ class CudaReplayBackend(ReplayBackend):
                 # dense boundary (may fall outside [0, span) when the slice
                 # touches one tenant only: the compares stay correct)
                 iparams[lane, 6] = int(tn.boundary) - lo
-            if preds is not None:
+            if kind == "learned":
                 pr = np.asarray(pf.predicted_pages, dtype=np.int64)[:n]
-                preds[lane, :n] = np.where(pr >= 0, pr - lo, -1)
-        return pages, preds, fparams, iparams, span, buf_len
+                batch.preds[lane, :n] = np.where(pr >= 0, pr - lo, -1)
+            if kind == "oracle":
+                ftp = np.asarray(pf.ft_pages, dtype=np.int64) - lo
+                batch.ft[lane, :len(ftp)] = ftp
+                # the stream position only ever advances with the access
+                # index: precompute it per access
+                batch.pos[lane, :n] = np.searchsorted(
+                    pf.ft_index, np.arange(n), side="right")
+                iparams[lane, 4] = len(ftp)
+        return batch
 
     def _replay_batch(self, requests: Sequence[ReplayRequest]
                       ) -> List[UVMStats]:
         """Replay one homogeneous lane batch: pack, launch, unpack."""
-        pages, preds, fparams, iparams, span, buf_len = self.pack_batch(
-            requests)
-        dev = torch.device(self.device)
-        raw = lane_replay(
-            torch.as_tensor(pages, device=dev),
-            None if preds is None else torch.as_tensor(preds, device=dev),
-            torch.as_tensor(fparams, device=dev),
-            torch.as_tensor(iparams, device=dev), span, buf_len).cpu().numpy()
+        batch = self.pack_batch(requests)
+        raw = lane_replay(**batch.kernel_args(self.device)).cpu().numpy()
         out = []
         for lane, req in enumerate(requests):
             row = raw[lane]

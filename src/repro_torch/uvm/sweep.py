@@ -4,10 +4,12 @@ replayed as multi-lane K1 batches.
 A slim port of the reference ``repro.uvm.sweep``: the same cells, grid
 expansion, trace windows, learned-predictor training through the prediction
 cache, lane batching, and result rows with the SWEEP_VERSION 9 columns.
-This slice accepts the ``none``/``block``/``learned`` prefetchers on the
-benchmark traces under LRU eviction, and raises on anything else; the
-reference's lease pool, resume, serve, multi-tenant and adaptive paths are
-later slices.
+The port accepts all five prefetchers (``none``, ``block``, ``tree``,
+``learned``, ``oracle``) on the benchmark traces under the ``lru``,
+``random`` and ``hotcold`` eviction policies, and the named scenarios of
+``repro_torch.uvm.scenarios``; it raises on anything else.  The reference's
+lease pool, resume, serve, multi-tenant and adaptive paths are later
+slices.
 
 Programmatic use::
 
@@ -19,7 +21,9 @@ Programmatic use::
 CLI::
 
     PYTHONPATH=src python -m repro_torch.uvm.sweep --benches ATAX,BICG \\
-        --prefetchers none,learned --device-fracs 0.5 --out results/
+        --prefetchers none,tree,learned --device-fracs 0.5 --out results/
+    PYTHONPATH=src python -m repro_torch.uvm.sweep --scenario oversub-full \\
+        --out results/oversub
 """
 from __future__ import annotations
 
@@ -31,22 +35,29 @@ import hashlib
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.families import MODEL_FAMILIES
 from repro_torch.traces.trace import Trace
 from repro_torch.uvm.config import UVMConfig
+from repro_torch.uvm.eviction import EVICTION_POLICIES
 from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
-                                         NoPrefetcher, Prefetcher)
+                                         NoPrefetcher, OraclePrefetcher,
+                                         Prefetcher, TreePrefetcher)
 from repro_torch.uvm.replay_core import ReplayRequest, get_backend
 from repro_torch.uvm.simulator import UVMStats
 
-#: prefetchers and eviction policies of this slice of the port
-PREFETCHERS = ("none", "block", "learned")
-EVICTIONS = ("lru",)
-_PREFETCHER_TYPES = {"none": NoPrefetcher, "block": BlockPrefetcher}
+#: cell-spec prefetcher names to concrete types, in the reference's order
+_PREFETCHER_TYPES = {"none": NoPrefetcher, "block": BlockPrefetcher,
+                     "tree": TreePrefetcher, "learned": LearnedPrefetcher,
+                     "oracle": OraclePrefetcher}
+PREFETCHERS = tuple(_PREFETCHER_TYPES)
+#: eviction policies the port replays (the ``adaptive`` pseudo-policy is a
+#: later slice)
+EVICTIONS = EVICTION_POLICIES
 
 #: the reference's row-schema version: rows carry its columns, so port rows
 #: and reference rows of the same cells can be compared column by column
@@ -100,28 +111,59 @@ class SweepCell:
         return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
+def parse_capacity_split(split: Optional[str]
+                         ) -> Optional[Tuple[float, float]]:
+    """Validate/parse a ``capacity_split`` spec (the reference's parser):
+    ``None`` or ``"shared"`` -> None; ``"f0/f1"`` -> the two per-tenant
+    quota fractions of ``device_pages`` (``f0 + f1 <= 1``)."""
+    if split is None or split == "shared":
+        return None
+    try:
+        f0, f1 = (float(x) for x in str(split).split("/"))
+    except ValueError:
+        raise ValueError(
+            f"bad capacity_split {split!r}: expected 'shared' or two "
+            "quota fractions like '0.5/0.5'") from None
+    if f0 < 0 or f1 < 0 or f0 + f1 > 1.0 + 1e-9:
+        raise ValueError(
+            f"bad capacity_split {split!r}: fractions must be "
+            "non-negative and sum to at most 1")
+    return f0, f1
+
+
 def check_cell(cell: SweepCell) -> None:
-    """Raise on a cell outside this slice of the port."""
+    """Raise on a cell the port cannot run yet, naming the later slice."""
     from repro_torch.traces.generators import BENCHMARKS
+    from repro_torch.traces.interleave import is_mt_bench
+    from repro_torch.uvm.scenarios import ADAPTIVE_POLICY, is_serve_bench
     later = None
-    if cell.bench not in BENCHMARKS:
-        later = (f"bench {cell.bench!r} (serve and multi-tenant traces are a "
-                 "later slice; this slice runs "
-                 f"{','.join(sorted(BENCHMARKS))})")
-    elif cell.prefetcher not in PREFETCHERS:
-        later = f"prefetcher {cell.prefetcher!r}"
-    elif cell.eviction not in EVICTIONS:
-        later = f"eviction {cell.eviction!r}"
+    if is_serve_bench(cell.bench):
+        later = (f"serve bench {cell.bench!r}: serve scenarios with step "
+                 "clocks are a later slice of the port")
+    elif is_mt_bench(cell.bench):
+        later = (f"multi-tenant bench {cell.bench!r}: mt quotas and the "
+                 "per-tenant rows are a later slice of the port")
     elif cell.capacity_split is not None:
-        later = "capacity splits"
+        later = (f"capacity splits ({cell.capacity_split!r}) are a later "
+                 "slice of the port (the mt scenarios)")
+    elif cell.bench not in BENCHMARKS:
+        later = (f"unknown bench {cell.bench!r}; the port runs "
+                 f"{','.join(sorted(BENCHMARKS))}")
+    elif cell.eviction == ADAPTIVE_POLICY:
+        later = (f"eviction {cell.eviction!r}: the adaptive policy is a "
+                 "later slice of the port")
+    elif cell.prefetcher not in PREFETCHERS:
+        later = (f"unknown prefetcher {cell.prefetcher!r}; choose from "
+                 f"{','.join(PREFETCHERS)}")
+    elif cell.eviction not in EVICTIONS:
+        later = (f"unknown eviction {cell.eviction!r}; choose from "
+                 f"{','.join(EVICTIONS)}")
     elif cell.model_family not in MODEL_FAMILIES:
-        later = f"model family {cell.model_family!r}"
+        later = f"unknown model family {cell.model_family!r}"
     elif cell.backend != "cuda":
-        later = f"backend {cell.backend!r}"
+        later = f"backend {cell.backend!r}: the port's only backend is cuda"
     if later is not None:
-        raise ValueError(f"{later} is not in this slice of the port "
-                         f"(prefetchers {','.join(PREFETCHERS)}, eviction "
-                         "lru, backend cuda)")
+        raise ValueError(f"cell {cell.bench}/{cell.prefetcher}: {later}")
 
 
 def expand_grid(benches: Sequence[str], prefetchers: Sequence[str], *,
@@ -130,14 +172,15 @@ def expand_grid(benches: Sequence[str], prefetchers: Sequence[str], *,
                 windows: Sequence[Optional[float]] = (0.6,),
                 prediction_us: Sequence[float] = (1.0,),
                 device_fracs: Sequence[Optional[float]] = (None,),
+                evictions: Sequence[str] = ("lru",),
                 service_steps: int = 150) -> List[SweepCell]:
-    """Cartesian product of the sweep axes, in deterministic order."""
+    """Cartesian product of the sweep axes, in the reference's order."""
     return [SweepCell(bench=bench, prefetcher=pf, scale=scale, seed=seed,
                       window=window, prediction_us=us, device_frac=frac,
-                      service_steps=service_steps)
+                      eviction=ev, service_steps=service_steps)
             for bench in benches for pf in prefetchers for scale in scales
             for seed in seeds for window in windows for us in prediction_us
-            for frac in device_fracs]
+            for frac in device_fracs for ev in evictions]
 
 
 @functools.lru_cache(maxsize=32)
@@ -171,6 +214,8 @@ def make_prefetcher(cell: SweepCell, trace: Trace, config: UVMConfig,
         return LearnedPrefetcher(
             preds,
             extra_latency_cycles=cell.prediction_us * config.cycles_per_us)
+    if cell.prefetcher == "oracle":
+        return OraclePrefetcher(np.asarray(trace.pages))
     return _PREFETCHER_TYPES[cell.prefetcher]()
 
 
@@ -289,6 +334,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prediction-us", default="1.0")
     ap.add_argument("--device-fracs", default="",
                     help="e.g. '0.5,0.75' (empty = no oversubscription)")
+    ap.add_argument("--evictions", default="lru",
+                    help="eviction policies under oversubscription, comma "
+                         f"list from {','.join(EVICTIONS)}")
+    ap.add_argument("--scenario", default=None,
+                    help="expand a named scenario from "
+                         "repro_torch.uvm.scenarios (e.g. 'oversub-full': "
+                         "11 benchmarks x 4 capacity ratios x 3 eviction "
+                         "policies x 5 prefetchers) instead of the grid "
+                         "flags")
     ap.add_argument("--steps", type=int, default=150,
                     help="predictor training steps of learned cells")
     ap.add_argument("--device", default="cuda",
@@ -296,25 +350,41 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--out", default=None, help="results directory")
     args = ap.parse_args(argv)
 
-    benches = args.benches.split(",")
-    bad = [b for b in benches if b not in BENCHMARKS]
-    if bad:
-        ap.error(f"unknown benchmark(s) {','.join(bad)}; "
-                 f"choose from {','.join(sorted(BENCHMARKS))}")
-    pfs = args.prefetchers.split(",")
-    bad = [p for p in pfs if p not in PREFETCHERS]
-    if bad:
-        ap.error(f"prefetcher(s) {','.join(bad)} not in this slice; "
-                 f"choose from {','.join(PREFETCHERS)}")
-    fracs: List[Optional[float]] = [None]
-    if args.device_fracs:
-        fracs += [float(x) for x in args.device_fracs.split(",")]
-    cells = expand_grid(
-        benches, pfs, scales=[float(x) for x in args.scales.split(",")],
-        windows=[None if x == "full" else float(x)
-                 for x in args.windows.split(",")],
-        prediction_us=[float(x) for x in args.prediction_us.split(",")],
-        device_fracs=fracs, service_steps=args.steps)
+    if args.scenario:
+        from repro_torch.uvm.scenarios import (available_scenarios,
+                                               expand_scenario)
+        try:
+            cells = expand_scenario(args.scenario)
+        except KeyError:
+            ap.error(f"unknown scenario {args.scenario!r}; choose from "
+                     f"{','.join(available_scenarios())}")
+        print(f"[sweep] scenario {args.scenario!r}: {len(cells)} cells")
+    else:
+        benches = args.benches.split(",")
+        bad = [b for b in benches if b not in BENCHMARKS]
+        if bad:
+            ap.error(f"unknown benchmark(s) {','.join(bad)}; "
+                     f"choose from {','.join(sorted(BENCHMARKS))}")
+        pfs = args.prefetchers.split(",")
+        bad = [p for p in pfs if p not in PREFETCHERS]
+        if bad:
+            ap.error(f"unknown prefetcher(s) {','.join(bad)}; "
+                     f"choose from {','.join(PREFETCHERS)}")
+        evictions = args.evictions.split(",")
+        bad = [e for e in evictions if e not in EVICTIONS]
+        if bad:
+            ap.error(f"eviction policy(ies) {','.join(bad)} not in the "
+                     f"port; choose from {','.join(EVICTIONS)}")
+        fracs: List[Optional[float]] = [None]
+        if args.device_fracs:
+            fracs += [float(x) for x in args.device_fracs.split(",")]
+        cells = expand_grid(
+            benches, pfs, scales=[float(x) for x in args.scales.split(",")],
+            windows=[None if x == "full" else float(x)
+                     for x in args.windows.split(",")],
+            prediction_us=[float(x) for x in args.prediction_us.split(",")],
+            device_fracs=fracs, evictions=evictions,
+            service_steps=args.steps)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda but no CUDA device is available "
                  "(pass --device cpu to run the plain versions)")

@@ -1,8 +1,10 @@
-"""The port's kernels on the card: K1 replays the lru golden cells of this
-slice exactly, K2 matches its plain version, and the predictor's inference
-goes through K2.  Every test here needs a CUDA device and nvcc (a CUDA
-kernel has no CPU mode) and skips without one.  The module imports neither
-jax nor the reference package, so it runs where only PyTorch is installed:
+"""The port's kernels on the card: K1 replays the non-quota golden cells of
+every lane family and eviction policy exactly and matches its plain version,
+the paper's Table 10/11 tree rows equal the legacy engine's, K2 matches its
+plain version, and the predictor's inference goes through K2.  Every test
+here needs a CUDA device and nvcc (a CUDA kernel has no CPU mode) and skips
+without one.  The module imports neither jax nor the reference package, so
+it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -19,21 +21,18 @@ from repro_torch.core.model import Predictor
 from repro_torch.core.vocab import FEATURE_BUCKETS
 from repro_torch.kernels.hlsh_attention import (hlsh_attention,
                                                 hlsh_attention_plain)
-from repro_torch.kernels.lane_replay import lane_replay, lane_replay_plain
-from repro_torch.traces import GPUModel, generate_benchmark
-from repro_torch.traces.interleave import build_mt_trace
-from repro_torch.traces.trace import ROOT_PAGES, Trace, make_records
+from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, lane_replay,
+                                             lane_replay_plain)
+from repro_torch.uvm import golden as G
+from repro_torch.uvm import paper_tables, sweep
 from repro_torch.uvm.config import UVMConfig
-from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
-                                         NoPrefetcher)
+from repro_torch.uvm.prefetchers import TreePrefetcher
 from repro_torch.uvm.replay_core import ReplayRequest, get_backend
+from repro_torch.uvm.simulator import UVMSimulator
 
 pytestmark = pytest.mark.cuda
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "uvm_golden.json")
-INT_FIELDS = ("n_accesses", "n_instructions", "hits", "late", "faults",
-              "prefetch_issued", "prefetch_used", "pages_migrated",
-              "pages_evicted")
 
 
 @pytest.fixture(scope="module")
@@ -44,66 +43,25 @@ def device():
     return "cuda"
 
 
-def _synthetic(name, pages):
-    recs = make_records(len(pages))
-    recs["page"] = pages
-    recs["sm"] = np.arange(len(pages)) % 4
-    return Trace(name, recs, {}, {}, len(pages) * 100)
-
-
-def _perfect(trace, distance):
-    pages = np.asarray(trace.pages, dtype=np.int64)
-    preds = np.full(len(pages), -1, dtype=np.int64)
-    preds[:-distance] = pages[distance:]
-    return preds
-
-
-def _golden_lru_cases():
-    """The lru cases of the reference's golden matrix
-    (``repro.uvm.golden.golden_cases``), rebuilt from the port's copies."""
-    atax = GPUModel().run(generate_benchmark("ATAX", scale=0.25))
-    pathfinder = GPUModel().run(generate_benchmark("Pathfinder", scale=0.25))
-    bicg = np.concatenate([np.arange(k, k + 50, dtype=np.int64)
-                           for k in range(0, 12000, 200)])
-    oversub = np.tile(np.arange(2500, dtype=np.int64), 6)
-    n_churn = 3 * ROOT_PAGES
-    perm = (np.arange(n_churn, dtype=np.int64) * 7) % n_churn
-    churn = np.concatenate([perm + (0 if k % 2 == 0 else 8192)
-                            for k in range(8)])
-    mt = build_mt_trace("ATAX+Pathfinder", scale=0.25)
-    return {
-        "atax": (atax, UVMConfig()),
-        "pathfinder": (pathfinder, UVMConfig()),
-        "bicg-cluster": (_synthetic("bicg-cluster", bicg),
-                         UVMConfig(mshr_entries=16)),
-        "oversub": (_synthetic("oversub", oversub),
-                    UVMConfig(device_pages=1500)),
-        "tree-churn": (_synthetic("tree-churn", churn),
-                       UVMConfig(device_pages=2048)),
-        "mt-shared": (mt, UVMConfig(
-            device_pages=int(0.6 * mt.working_set_pages))),
-    }
-
-
 def test_k1_replays_the_golden_cells_exactly(device):
+    """The 70 non-quota golden cells: every lane family under lru, random
+    and hotcold, in one backend call (so they pack as a sweep packs)."""
     with open(FIXTURE) as f:
         golden = json.load(f)["cells"]
-    ids, requests = [], []
-    for case, (trace, cfg) in _golden_lru_cases().items():
-        lat = cfg.cycles_per_us
-        for name, pf in (
-                ("none", NoPrefetcher()), ("block", BlockPrefetcher()),
-                ("learned", LearnedPrefetcher(_perfect(trace, 32), lat)),
-                ("learned-tf", LearnedPrefetcher(_perfect(trace, 16), lat))):
-            ids.append(f"{case}/{name}")
-            requests.append(ReplayRequest(trace, pf, cfg))
+    ids = [c for c in G.golden_cell_ids()
+           if not G.golden_cell(c)[1].tenant_pages]
+    assert len(ids) == 70
+    requests = []
+    for cell_id in ids:
+        trace, cfg, factory = G.golden_cell(cell_id)
+        requests.append(ReplayRequest(trace, factory(), cfg))
     launches = lane_replay.launches
     stats = get_backend("cuda", device).replay(requests)
     assert lane_replay.launches > launches
     for cell_id, st in zip(ids, stats):
         want = golden[cell_id]
         assert st.backend == "cuda"
-        for f in INT_FIELDS:
+        for f in G.INT_FIELDS:
             assert getattr(st, f) == want[f], (cell_id, f)
         for f in ("cycles", "pcie_bytes"):
             assert getattr(st, f) == pytest.approx(want[f], rel=1e-6), (
@@ -112,8 +70,10 @@ def test_k1_replays_the_golden_cells_exactly(device):
             assert list(st.tenant_hits) == want["tenant_hits"], cell_id
 
 
-def test_k1_matches_its_plain_version(device):
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_k1_matches_its_plain_version(device, family, policy):
+    rng = np.random.default_rng(FAMILIES.index(family))
     n_lanes, t_max, span = 4, 2048, 4096
     pages = rng.integers(0, 3000, (n_lanes, t_max)).astype(np.int32)
     preds = np.where(rng.random((n_lanes, t_max)) < 0.7,
@@ -125,11 +85,43 @@ def test_k1_matches_its_plain_version(device):
     iparams[1, 1] = -1                      # one uncapped lane
     iparams[2, 0] = 1000                    # one short lane
     iparams[3, 0] = 0                       # one padding lane
+    iparams[:, 3] = family in ("demand", "learned")
+    iparams[:, 5] = 12345                   # lane lo of the random draws
+    kw = {"family": family, "policy": policy}
     args = [torch.as_tensor(a) for a in (pages, preds, fparams, iparams)]
-    want = lane_replay_plain(*args, span)
-    got = lane_replay(*(a.to(device) for a in args), span, 17).cpu()
+    if family == "oracle":
+        # first-touch stream of each lane, padded with the trash slot
+        ft = np.full((n_lanes, 3072 + 96), span, dtype=np.int32)
+        pos = np.zeros((n_lanes, t_max), dtype=np.int32)
+        for lane in range(n_lanes):
+            uniq, first = np.unique(pages[lane], return_index=True)
+            order = np.sort(first)
+            ft[lane, :len(order)] = pages[lane][order]
+            pos[lane] = np.searchsorted(order, np.arange(t_max), side="right")
+            iparams[lane, 4] = len(order)
+        kw.update(ft=torch.as_tensor(ft), pos=torch.as_tensor(pos),
+                  lookahead=96)
+    if family != "learned":
+        args[1] = None
+    want = lane_replay_plain(*args, span, **kw)
+    dev_kw = {k: (v.to(device) if torch.is_tensor(v) else v)
+              for k, v in kw.items()}
+    got = lane_replay(*(None if a is None else a.to(device) for a in args),
+                      span, 17, **dev_kw).cpu()
     assert torch.equal(got, want)
     assert got[3].abs().sum() == 0
+
+
+def test_table10_tree_rows_equal_the_legacy_engine(device):
+    benches = ("2DCONV", "ATAX")
+    rows, _ = paper_tables.run(benches, device=device)
+    for bench, row in zip(benches, rows):
+        trace = sweep.load_trace(bench, 1.0, 0, paper_tables.EVAL_WINDOW)
+        want = UVMSimulator(UVMConfig()).run(trace, TreePrefetcher())
+        assert row["bench"] == bench
+        assert row["hit_U"] == want.hit_rate
+        assert row["simulated_inst"] == trace.n_instructions
+        assert 0.0 < row["hit_R"] <= 1.0
 
 
 @pytest.mark.parametrize("b,n,d", [(4096, 30, 12), (2, 256, 64),

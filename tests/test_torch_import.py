@@ -28,6 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -44,8 +45,12 @@ def test_port_imports_with_jax_and_repro_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-4000:]
-    # every module of the slice was imported, not a vacuous package
-    assert int(res.stdout.strip().splitlines()[-1]) >= 30
+    # every module of the port was imported, not a vacuous package
+    names, count = res.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 33
+    assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
+            "repro_torch.uvm.golden", "repro_torch.kernels.lane_replay",
+            "repro_torch.uvm.backends.cuda_backend"} <= set(names.split())
 
 
 _FORBIDDEN = re.compile(

@@ -1,7 +1,8 @@
-"""The port's sweep entry point and prediction cache: the slice's cells
-expand, run and write rows with the reference's columns; cells outside the
-slice raise; prediction arrays are keyed apart from the JAX package's and
-stored with a checksum."""
+"""The port's sweep entry point and prediction cache: the cells of all five
+prefetchers under the three eviction policies expand, run, equal the legacy
+engine and write rows with the reference's columns; cells the port cannot
+run yet raise, naming the later slice; prediction arrays are keyed apart
+from the JAX package's and stored with a checksum."""
 import csv
 import os
 import warnings
@@ -15,6 +16,7 @@ from repro.uvm import predcache as ref_predcache
 from repro.uvm import sweep as ref_sweep
 from repro_torch.core.service import PredictorService
 from repro_torch.uvm import predcache, sweep
+from repro_torch.uvm.simulator import UVMSimulator
 
 
 @pytest.fixture(scope="module")
@@ -40,9 +42,10 @@ def test_expand_grid_order():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"prefetcher": "tree"}, "prefetcher 'tree'"),
-    ({"prefetcher": "oracle"}, "prefetcher 'oracle'"),
-    ({"eviction": "random"}, "eviction 'random'"),
+    ({"bench": "ServeDecode"}, "serve scenarios with step clocks are a "
+     "later slice"),
+    ({"prefetcher": "bogus"}, "unknown prefetcher 'bogus'"),
+    ({"model_family": "bogus"}, "unknown model family 'bogus'"),
     ({"eviction": "adaptive"}, "eviction 'adaptive'"),
     ({"bench": "ATAX+Pathfinder"}, "later slice"),
     ({"capacity_split": "0.5/0.5"}, "capacity splits"),
@@ -75,6 +78,37 @@ def test_demand_sweep_writes_rows(tmp_path):
     assert list(got[0]) == sweep.ROW_FIELDS and len(got) == 8
 
 
+def test_tree_and_oracle_cells_under_every_policy_equal_legacy():
+    cells = sweep.expand_grid(["2DCONV"], ["tree", "oracle"], scales=[0.25],
+                              device_fracs=[0.5],
+                              evictions=["lru", "random", "hotcold"])
+    assert [(c.prefetcher, c.eviction) for c in cells] == [
+        (p, e) for p in ("tree", "oracle")
+        for e in ("lru", "random", "hotcold")]
+    rows = sweep.run_sweep(cells, device="cpu")
+    for cell, row in zip(cells, rows):
+        assert row["backend"] == "cuda" and row["eviction"] == cell.eviction
+        trace, config, pf, _ = sweep.prepare_cell(cell, device="cpu")
+        want = UVMSimulator(config).run(trace, pf)
+        for f in ("hits", "late", "faults", "prefetch_issued",
+                  "prefetch_used", "pages_migrated", "pages_evicted"):
+            assert row[f] == getattr(want, f), (cell.prefetcher, f)
+        assert row["cycles"] == pytest.approx(want.cycles, rel=1e-6)
+        assert row["pages_evicted"] > 0 and row["prefetch_issued"] > 0
+
+
+def test_prefetcher_and_policy_vocabulary_is_the_reference_one():
+    assert sweep.PREFETCHERS == ref_sweep.PREFETCHERS
+    assert sweep.EVICTIONS == ("lru", "random", "hotcold")
+    trace = sweep.load_trace("ATAX", 0.25, 0, 0.6)
+    cell = sweep.SweepCell("ATAX", "oracle", scale=0.25)
+    pf = sweep.make_prefetcher(cell, trace, None)
+    assert type(pf).__name__ == "OraclePrefetcher"
+    # the first-touch stream of the cell's own trace
+    assert np.array_equal(np.sort(pf.ft_pages), np.unique(trace.pages))
+    assert pf.ft_pages[0] == trace.pages[0] and pf.lookahead == 96
+
+
 def test_sweep_cli(tmp_path, capsys):
     sweep.main(["--benches", "2DCONV", "--prefetchers", "none",
                 "--scales", "0.25", "--device-fracs", "0.5",
@@ -82,6 +116,18 @@ def test_sweep_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "2 cells" in out and "2DCONV,none,0.5000,lru,cuda" in out
     assert os.path.exists(os.path.join(tmp_path, "results.json"))
+
+
+def test_sweep_cli_evictions(tmp_path, capsys):
+    sweep.main(["--benches", "2DCONV", "--prefetchers", "tree",
+                "--scales", "0.25", "--device-fracs", "0.5",
+                "--evictions", "random,hotcold", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "4 cells" in out
+    assert "2DCONV,tree,0.5000,random,cuda" in out
+    assert "2DCONV,tree,0.5000,hotcold,cuda" in out
+    with pytest.raises(SystemExit):
+        sweep.main(["--evictions", "adaptive", "--device", "cpu"])
 
 
 def test_predictions_key_has_the_torch_tag(trace):
