@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-learned-prefetch sweep, the paper's tree-vs-learned tables and the
-oversubscription matrix on the card:
+learned-prefetch sweep, the paper's tree-vs-learned tables, the
+oversubscription matrix, the serving matrix and the multi-tenant matrix on
+the card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -11,8 +12,8 @@ oversubscription matrix on the card:
    other family x policy (tree and oracle under lru/random/hotcold,
    none/block/learned under random/hotcold) at half the working set;
 3. K1 against ``tests/golden/uvm_golden.json`` and against its plain
-   version on whole batches of the 70 non-quota golden cells, one batch per
-   family x policy (maximum difference 0), with both timed;
+   version on whole batches of the 77 golden cells, one batch per kernel
+   variant (maximum difference 0), with both timed;
 4. K2 (HLSH attention) against its plain version;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
@@ -23,13 +24,31 @@ oversubscription matrix on the card:
 7. the ``oversub-full`` scenario (660 cells) through the port's sweep,
    sharing the main path's prediction cache; the 2DCONV cells are held
    against the legacy engine;
-8. kernel times from CUDA events beside the plain versions and a PyTorch
-   yardstick: K1 per family x policy on the largest batch of the matrix,
-   K1 against its plain version on the main path's learned batch and on
-   the tables' tree batch, then the ``kernels`` line and the result line.
+8. K1 with step clocks against the legacy engine at scale 1.0: every
+   family x policy on the five serve traces and ServeBursty@r8 (316 empty
+   windows), window clocks bit for bit;
+9. K1 with tenant quotas (and the tenants' completion clocks) against the
+   legacy engine on each multi-tenant pair under the 0.5/0.5 and 0.4/0.4
+   splits, every family x policy; K1 against its plain version on a small
+   step-clock batch and a small quota batch of every family x policy;
+10. the ``serve-full`` scenario (300 cells): every row on cuda with its
+    latency percentiles from K1's step clocks; the ServeBursty rows are
+    held against the legacy engine;
+11. the ``mt-full`` scenario (360 cells, the tenants' solo replays as K1
+    lanes of the same sweep): per-tenant hit rates and slowdowns; the
+    MVT+StreamTriad rows, solo replays included, are held against the
+    legacy engine;
+12. kernel times from CUDA events beside the plain versions and a PyTorch
+    yardstick: K1 per kernel variant on the largest batch of each path
+    (the step-clock batches also without their capture, and through the
+    quota specialisation), K1's per-eviction cost against the scanned
+    span, K1 against its plain version on the main path's learned batch and
+    on the tables' tree batch, then the ``kernels`` line and the result
+    line.
 
-Each of the three driven paths (5, 6, 7) zeroes the launch counters just
-before it and reads them just after.
+Each of the five driven paths (5, 6, 7, 10, 11) zeroes the launch counters
+just before it and reads them just after.  The legacy engine's replays and
+the plain versions run in a pool of worker processes on the host.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` (``--out`` also writes the rows
 and kernel records as JSON).  Exits non-zero without a result line when no
@@ -38,8 +57,11 @@ CUDA device is present or any check fails.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -56,6 +78,19 @@ FRACS = (None, 0.5)
 NEW_LANE_BENCHES = ("ATAX", "NW", "Pathfinder", "2DCONV")
 #: the matrix bench held against the legacy engine in phase 7
 MATRIX_CHECK_BENCH = "2DCONV"
+#: serve traces of the step-clock check (phase 8): serve-full's five and
+#: ServeBursty@r8, whose windows are a third empty
+STEP_CHECK_BENCHES = ("ServeDecode", "ServeTenantMix", "ServeBursty",
+                      "ServeBursty@r32", "ServeBursty@r256", "ServeBursty@r8")
+#: capacity ratio and quota splits of the quota check (phase 9)
+QUOTA_CHECK_RATIO = 0.75
+QUOTA_CHECK_SPLITS = ((0.5, 0.5), (0.4, 0.4))
+#: the serve bench and the multi-tenant pair whose rows are held against
+#: the legacy engine (phases 10 and 11)
+SERVE_CHECK_BENCH = "ServeBursty"
+MT_CHECK_BENCH = "MVT+StreamTriad"
+#: worker processes of the legacy engine and the plain versions
+HOST_WORKERS = 7
 K1_SOURCE = "src/repro_torch/csrc/lane_replay.cu"
 K2_SOURCE = "src/repro_torch/csrc/hlsh_attention.cu"
 K1_REPLACES = "src/repro/uvm/backends/pallas_backend.py:197"
@@ -80,6 +115,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def same_stats(got, want, what: str) -> None:
+    """Counters exact, cycles/pcie_bytes within 1e-6 relative, and the
+    per-tenant hits and step clocks (where the replay has them) exact."""
+    import numpy as np
     for f in INT_FIELDS:
         check(getattr(got, f) == getattr(want, f),
               f"{what}: {f} {getattr(got, f)} != {getattr(want, f)}")
@@ -87,6 +125,34 @@ def same_stats(got, want, what: str) -> None:
         g, w = getattr(got, f), getattr(want, f)
         check(abs(g - w) <= 1e-6 * abs(w),
               f"{what}: {f} {g!r} != {w!r} beyond 1e-6 relative")
+    check(got.tenant_hits == want.tenant_hits
+          and got.tenant_accesses == want.tenant_accesses,
+          f"{what}: tenant hits {got.tenant_hits} != {want.tenant_hits}")
+    check((got.step_clocks is None) == (want.step_clocks is None)
+          and (want.step_clocks is None
+               or np.array_equal(got.step_clocks, want.step_clocks)),
+          f"{what}: step clocks differ from the legacy engine's")
+
+
+def legacy_replay(req):
+    """The legacy engine on one request (a host worker's job)."""
+    from repro_torch.uvm.simulator import UVMSimulator
+    return UVMSimulator(req.config).run(req.trace, req.prefetcher,
+                                        step_bounds=req.step_bounds)
+
+
+def plain_replay(kwargs):
+    """K1's plain version on one lane batch's CPU arguments (a host
+    worker's job): (result, seconds)."""
+    from repro_torch.kernels.lane_replay import lane_replay_plain
+    t0 = time.perf_counter()
+    out = lane_replay_plain(**kwargs)
+    return out, time.perf_counter() - t0
+
+
+def init_worker() -> None:
+    import torch
+    torch.set_num_threads(1)
 
 
 def same_row(row, want, what: str) -> None:
@@ -120,28 +186,64 @@ def k1_bound_ms(batch) -> float:
     pages, predictions and stream positions, the first-touch streams, the
     parameter blocks), each stat written once, over the HBM rate."""
     n_acc = int(batch.iparams[:, 0].sum())
-    per_access = 4 + (4 if batch.preds is not None else 0) + (
-        4 if batch.pos is not None else 0)
+    per_access = 4 + sum(4 for a in (batch.preds, batch.pos, batch.sids)
+                         if a is not None)
     n_ft = int(batch.iparams[:, 4].clip(min=0).sum()) if (
         batch.ft is not None) else 0
     lanes = int((batch.iparams[:, 0] > 0).sum())
     nbytes = (n_acc * per_access + n_ft * 4 + lanes * (8 * 8 + 9 * 4)
-              + lanes * 10 * 8)
+              + lanes * 10 * 8 + lanes * batch.steps_len * 8)
     return nbytes / HBM_BYTES_S * 1e3
 
 
-def k1_vs_plain(batch):
-    """K1 and its plain version on one lane batch: (max abs difference of
-    the stats, kernel stats, plain seconds)."""
-    from repro_torch.kernels.lane_replay import lane_replay, lane_replay_plain
-    args = batch.kernel_args("cuda")
-    got = lane_replay(**args).cpu()
+def variant_key(batch):
+    """K1's variant of one lane batch: (family, policy[, steps][, quotas])."""
+    from repro_torch.kernels.lane_replay import kind_key
+    return kind_key(batch.family, batch.policy, batch.steps_len,
+                    batch.quotas)
+
+
+def new_variant(key, **fields):
+    return {"family": key[0], "policy": key[1],
+            "variant": "+".join(key[2:]) or "base", **fields}
+
+
+def path_batches(backend, requests):
+    """The lane batches a sweep of ``requests`` launches, by K1 variant."""
+    by_key = {}
+    for idx in backend.pack_lanes(requests):
+        batch = backend.pack_batch([requests[i] for i in idx])
+        by_key.setdefault(variant_key(batch), []).append(batch)
+    return by_key
+
+
+def plain_job(batch):
+    """The CPU arguments of K1's plain version on one lane batch."""
     cpu = batch.kernel_args("cpu")
     cpu.pop("buf_len")
-    t0 = time.perf_counter()
-    want = lane_replay_plain(**cpu)
-    plain_s = time.perf_counter() - t0
-    return float((got - want).abs().max()), got, plain_s
+    return cpu
+
+
+def k1_against(batch, plain):
+    """K1 on one lane batch against its plain version's result ``plain``
+    (from :func:`plain_replay`): (max abs difference of the stats and
+    window clocks, kernel stats)."""
+    from repro_torch.kernels.lane_replay import lane_replay
+    got = lane_replay(**batch.kernel_args("cuda"))
+    err = 0.0
+    if batch.steps_len:
+        (got, got_steps), (plain, plain_steps) = got, plain
+        err = float((got_steps.cpu() - plain_steps).abs().max())
+    got = got.cpu()
+    return max(err, float((got - plain).abs().max())), got
+
+
+def k1_vs_plain(batch):
+    """K1 and its plain version on one lane batch, in this process: (max
+    abs difference, kernel stats, plain seconds)."""
+    want, plain_s = plain_replay(plain_job(batch))
+    err, got = k1_against(batch, want)
+    return err, got, plain_s
 
 
 def main(argv=None) -> int:
@@ -150,12 +252,23 @@ def main(argv=None) -> int:
                     help="also write rows and kernel records here as JSON")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 2
+    pool = concurrent.futures.ProcessPoolExecutor(
+        HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=init_worker)
+    try:
+        return smoke(args, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def smoke(args, pool) -> int:
+    import numpy as np
+    import torch
     from repro_torch.core.features import cluster_trace, delta_convergence
     from repro_torch.kernels import build
     from repro_torch.kernels import lane_replay as k1
@@ -164,6 +277,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.lane_replay import lane_replay
     from repro_torch.uvm import golden as G
     from repro_torch.uvm import paper_tables, sweep
+    from repro_torch.offload.serve_trace import (serve_latency_columns,
+                                                 trace_step_bounds)
+    from repro_torch.traces.interleave import (mt_component_trace,
+                                               tenant_last_index)
     from repro_torch.uvm.backends.cuda_backend import (PORTED_FAMILIES,
                                                        PORTED_POLICIES,
                                                        lane_family)
@@ -173,8 +290,7 @@ def main(argv=None) -> int:
                                              OraclePrefetcher,
                                              TreePrefetcher)
     from repro_torch.uvm.replay_core import ReplayRequest, get_backend
-    from repro_torch.uvm.scenarios import expand_scenario
-    from repro_torch.uvm.simulator import UVMSimulator
+    from repro_torch.uvm.scenarios import MT_BENCHES, expand_scenario
 
     # float32 products in full precision (TF32 off), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,12 +345,14 @@ def main(argv=None) -> int:
                     device_pages=cap, eviction=policy)))
     requests = [ReplayRequest(tr, makers[name](tr, cfg), cfg)
                 for _, _, name, tr, cfg in cells]
+    legacy = pool.map(legacy_replay, requests)
     stats = backend.replay(requests)
     torch.cuda.synchronize()
     p2_kinds = set()
-    for (bench, frac, name, tr, cfg), req, st in zip(cells, requests, stats):
+    for (bench, frac, name, tr, cfg), req, st, want in zip(
+            cells, requests, stats, legacy):
         check(st.backend == "cuda", f"{bench}/{name}: backend {st.backend}")
-        same_stats(st, UVMSimulator(cfg).run(tr, makers[name](tr, cfg)),
+        same_stats(st, want,
                    f"K1 vs legacy {bench}/{name}/{cfg.eviction}/frac={frac}")
         p2_kinds.add(kind_of(req))
     check(len(p2_kinds) == len(PORTED_FAMILIES) * len(PORTED_POLICIES),
@@ -248,21 +366,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with open(GOLDEN) as f:
         golden = json.load(f)["cells"]
-    gids = [c for c in G.golden_cell_ids()
-            if not G.golden_cell(c)[1].tenant_pages]
+    gids = G.golden_cell_ids()
     greqs = []
     for c in gids:
         trace, cfg, factory = G.golden_cell(c)
         greqs.append(ReplayRequest(trace, factory(), cfg))
+    gbatches = [(idx, backend.pack_batch([greqs[i] for i in idx]))
+                for idx in backend.pack_lanes(greqs)]
+    # the plain versions run in the host workers, all at once
+    plains = pool.map(plain_replay, [plain_job(b) for _, b in gbatches])
     variants = {}
     k1_err = 0.0
-    for batch_idx in backend.pack_lanes(greqs):
-        reqs = [greqs[i] for i in batch_idx]
-        fam, pol = kind_of(reqs[0])
-        batch = backend.pack_batch(reqs)
-        err, got, plain_s = k1_vs_plain(batch)
-        check(err == 0.0, f"K1 vs plain on the golden {fam}/{pol} batch: "
-              f"max diff {err}")
+    for (batch_idx, batch), (plain, plain_s) in zip(gbatches, plains):
+        key = variant_key(batch)
+        err, got = k1_against(batch, plain)
+        check(err == 0.0, f"K1 vs plain on the golden {key} batch: max diff "
+              f"{err}")
         k1_err = max(k1_err, err)
         for lane, i in enumerate(batch_idx):
             want = golden[gids[i]]
@@ -272,25 +391,28 @@ def main(argv=None) -> int:
                       else abs(row[j] - want[f]) <= 1e-6 * abs(want[f]))
                 check(ok, f"K1 golden {gids[i]}: {f} {row[j]} != "
                       f"{want[f]}")
+            if "tenant_hits" in want:
+                th0 = int(row[len(k1.STAT_FIELDS)])
+                check([th0, int(row[1]) - th0] == want["tenant_hits"],
+                      f"K1 golden {gids[i]}: tenant hits")
         args_ = batch.kernel_args("cuda")
-        variants[(fam, pol)] = {
-            "family": fam, "policy": pol,
-            "golden_lanes": len(batch_idx),
-            "golden_accesses": int(batch.iparams[:, 0].sum()),
-            "golden_ms": cuda_ms(lambda: lane_replay(**args_), reps=3),
-            "golden_plain_ms": plain_s * 1e3,
-            "golden_bound_ms": k1_bound_ms(batch),
-            "golden_max_abs_err": err}
-    check(len(variants) == len(PORTED_FAMILIES) * len(PORTED_POLICIES),
+        variants[key] = new_variant(
+            key, golden_lanes=len(batch_idx),
+            golden_accesses=int(batch.iparams[:, 0].sum()),
+            golden_ms=cuda_ms(lambda: lane_replay(**args_), reps=3),
+            golden_plain_ms=plain_s * 1e3,
+            golden_bound_ms=k1_bound_ms(batch), golden_max_abs_err=err)
+    n_base = len(PORTED_FAMILIES) * len(PORTED_POLICIES)
+    check(len(variants) == n_base + len(PORTED_FAMILIES),
           f"golden batches covered {sorted(variants)} only")
     print(f"phase 3 {card}: K1 equal to the fixture on {len(gids)} golden "
           f"cells and to its plain version on {len(variants)} batches (max "
           f"diff {k1_err}), in {time.perf_counter() - t0:.1f} s", flush=True)
     for v in variants.values():
-        print(f"  golden {v['family']}/{v['policy']}: {v['golden_lanes']} "
-              f"lanes, {v['golden_accesses']} accesses: K1 "
-              f"{v['golden_ms']:.3f} ms, plain {v['golden_plain_ms']:.1f} ms",
-              flush=True)
+        print(f"  golden {v['family']}/{v['policy']}/{v['variant']}: "
+              f"{v['golden_lanes']} lanes, {v['golden_accesses']} accesses: "
+              f"K1 {v['golden_ms']:.3f} ms, plain {v['golden_plain_ms']:.1f} "
+              "ms", flush=True)
 
     # ---- phase 4: K2 against its plain version ----------------------------
     rng = np.random.default_rng(0)
@@ -349,17 +471,23 @@ def main(argv=None) -> int:
           "K2 never launched on the main path")
     learned_reqs = []
     legacy_tree = {}
-    for cell, r in zip(grid, rows):
-        if cell.prefetcher == "none":
-            continue
-        trace, config, pf, _ = sweep.prepare_cell(cell, device="cuda")
-        want = UVMSimulator(config).run(trace, pf)
+    checked = [(cell, r) for cell, r in zip(grid, rows)
+               if cell.prefetcher != "none"]
+    creqs = [ReplayRequest(trace, pf, config) for trace, config, pf, _ in
+             (sweep.prepare_cell(cell, device="cuda") for cell, _ in checked)]
+    for (cell, r), req, want in zip(checked, creqs,
+                                    pool.map(legacy_replay, creqs)):
         same_row(r, want, f"main path {cell.bench}/{cell.prefetcher}/"
                  f"{cell.device_frac}")
         if cell.prefetcher == "learned":
-            learned_reqs.append(ReplayRequest(trace, pf, config))
+            learned_reqs.append(req)
         elif cell.device_frac is None:
             legacy_tree[cell.bench] = want
+    # K1's plain version on the main path's learned batch runs in a host
+    # worker while the card drives the later paths (compared in phase 12)
+    k1_batch = backend.pack_batch(
+        [learned_reqs[i] for i in backend.pack_lanes(learned_reqs)[0]])
+    main_plain = pool.submit(plain_replay, plain_job(k1_batch))
     print(f"phase 5: {len(learned_reqs)} learned and {2 * len(legacy_tree)} "
           "tree rows equal the legacy engine on the same inputs", flush=True)
 
@@ -442,20 +570,264 @@ def main(argv=None) -> int:
                       f"{np.mean([r['hit_rate'] for r in sel]):.4f},"
                       f"{np.mean([r['unity'] for r in sel]):.4f},"
                       f"{np.mean([r['pages_evicted'] for r in sel]):.0f}")
-    n_checked = 0
-    for cell, r, req in zip(matrix, mrows, mreqs):
-        if cell.bench != MATRIX_CHECK_BENCH:
-            continue
-        same_row(r, UVMSimulator(req.config).run(req.trace, req.prefetcher),
-                 f"oversub-full {cell.bench}/{cell.prefetcher}/"
-                 f"{cell.eviction}/{cell.device_frac}")
-        n_checked += 1
+    chk = [i for i, c in enumerate(matrix) if c.bench == MATRIX_CHECK_BENCH]
+    for i, want in zip(chk, pool.map(legacy_replay, [mreqs[i] for i in chk])):
+        cell = matrix[i]
+        same_row(mrows[i], want, f"oversub-full {cell.bench}/"
+                 f"{cell.prefetcher}/{cell.eviction}/{cell.device_frac}")
+    n_checked = len(chk)
     print(f"phase 7: the {n_checked} {MATRIX_CHECK_BENCH} rows equal the "
           f"legacy engine", flush=True)
 
-    # ---- phase 8: kernel times ------------------------------------------
+    # ---- phase 8: K1 with step clocks against the legacy engine ---------
+    t0 = time.perf_counter()
+    sreqs = []
+    for bench in STEP_CHECK_BENCHES:
+        tr = sweep.load_trace(bench, 1.0, 0, None)
+        bounds = trace_step_bounds(tr)
+        cap = int(tr.working_set_pages * 0.5)
+        for name in sweep.PREFETCHERS:
+            for policy in PORTED_POLICIES:
+                cfg = UVMConfig(device_pages=cap, eviction=policy)
+                sreqs.append(ReplayRequest(tr, makers[name](tr, cfg), cfg,
+                                           step_bounds=bounds))
+    k1_s = time.perf_counter()
+    stats = backend.replay(sreqs)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - k1_s
+    empty = {}
+    for req, st, want in zip(sreqs, stats, pool.map(legacy_replay, sreqs)):
+        what = (f"K1 step clocks vs legacy {req.trace.name}/"
+                f"{type(req.prefetcher).__name__}/{req.config.eviction}")
+        check(st.backend == "cuda" and st.step_clocks is not None, what)
+        same_stats(st, want, what)
+        sizes = np.diff(np.concatenate([[0], req.step_bounds]))
+        empty[req.trace.name] = int((sizes == 0).sum())
+    p8_kinds = {variant_key(backend.pack_batch([r])) for r in sreqs}
+    check(len(p8_kinds) == n_base, f"phase 8 covered {sorted(p8_kinds)}")
+    print(f"phase 8 {card}: K1 step clocks equal the legacy engine's bit for "
+          f"bit on {len(sreqs)} scale-1.0 serve lanes ({len(p8_kinds)} "
+          f"family x policy kinds; empty windows per trace {empty}); K1 "
+          f"{k1_s:.1f} s, whole phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- phase 9: K1 with tenant quotas against the legacy engine --------
+    t0 = time.perf_counter()
+    qreqs = []
+    for pair in MT_BENCHES:
+        tr = sweep.load_trace(pair, 1.0, 0, 0.6)
+        bounds = sweep._mt_step_bounds(tr)
+        cap = int(tr.working_set_pages * QUOTA_CHECK_RATIO)
+        for f0, f1 in QUOTA_CHECK_SPLITS:
+            for name in sweep.PREFETCHERS:
+                for policy in PORTED_POLICIES:
+                    cfg = UVMConfig(device_pages=cap, eviction=policy,
+                                    tenant_pages=(int(f0 * cap),
+                                                  int(f1 * cap)))
+                    qreqs.append(ReplayRequest(tr, makers[name](tr, cfg),
+                                               cfg, step_bounds=bounds))
+    # the legacy engine is slow on quota lanes: start it first
+    q_legacy = pool.map(legacy_replay, qreqs)
+    k1_s = time.perf_counter()
+    stats = backend.replay(qreqs)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - k1_s
+    # K1 against its plain version on a small batch of each new variant:
+    # a step-clock lane of ServeBursty@r8 and a quota lane with the
+    # tenants' completion clocks of ATAX+Pathfinder, both at scale 0.25
+    small = []
+    serve_small = sweep.load_trace("ServeBursty@r8", 0.25, 0, None)
+    mt_small = sweep.load_trace("ATAX+Pathfinder", 0.25, 0, 0.6)
+    for name in sweep.PREFETCHERS:
+        for policy in PORTED_POLICIES:
+            cap = int(serve_small.working_set_pages * 0.5)
+            cfg = UVMConfig(device_pages=cap, eviction=policy)
+            small.append([ReplayRequest(
+                serve_small, makers[name](serve_small, cfg), cfg,
+                step_bounds=trace_step_bounds(serve_small))])
+            cap = int(mt_small.working_set_pages * 0.6)
+            cfg = UVMConfig(device_pages=cap, eviction=policy,
+                            tenant_pages=(int(0.4 * cap), int(0.4 * cap)))
+            small.append([ReplayRequest(
+                mt_small, makers[name](mt_small, cfg), cfg,
+                step_bounds=sweep._mt_step_bounds(mt_small))])
+    small = [b for b in small
+             if type(b[0].prefetcher).__name__ != "BlockPrefetcher"]
+    sbatches = [backend.pack_batch(reqs) for reqs in small]
+    plains = pool.map(plain_replay, [plain_job(b) for b in sbatches])
+    for req, st, want in zip(qreqs, stats, q_legacy):
+        what = (f"K1 quotas vs legacy {req.trace.name}/"
+                f"{type(req.prefetcher).__name__}/{req.config.eviction}/"
+                f"{req.config.tenant_pages}")
+        check(st.backend == "cuda" and st.tenant_hits is not None, what)
+        same_stats(st, want, what)
+    p9_kinds = {variant_key(backend.pack_batch([r])) for r in qreqs}
+    check(len(p9_kinds) == n_base, f"phase 9 covered {sorted(p9_kinds)}")
+    for batch, (plain, plain_s) in zip(sbatches, plains):
+        key = variant_key(batch)
+        err, _ = k1_against(batch, plain)
+        check(err == 0.0, f"K1 vs plain on the small {key} batch: max diff "
+              f"{err}")
+        k1_err = max(k1_err, err)
+        args_ = batch.kernel_args("cuda")
+        variants.setdefault(key, new_variant(key)).update(
+            plain_lanes=int((batch.iparams[:, 0] > 0).sum()),
+            plain_accesses=int(batch.iparams[:, 0].sum()),
+            plain_k1_ms=cuda_ms(lambda: lane_replay(**args_), reps=3),
+            plain_ms=plain_s * 1e3, plain_bound_ms=k1_bound_ms(batch),
+            plain_max_abs_err=err)
+    print(f"phase 9 {card}: K1 with quotas equals the legacy engine on "
+          f"{len(qreqs)} scale-1.0 lanes of the {len(MT_BENCHES)} pairs "
+          f"(ratio {QUOTA_CHECK_RATIO}, splits {QUOTA_CHECK_SPLITS}; "
+          f"{len(p9_kinds)} kinds), and its plain version on "
+          f"{len(sbatches)} small step-clock and quota batches (max diff "
+          f"{k1_err}); K1 {k1_s:.1f} s, whole phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 10: the serve-full matrix --------------------------------
+    scells = expand_scenario("serve-full")
+    k1.reset_counts()
+    t0 = time.perf_counter()
+    srows = sweep.run_sweep(scells, device="cuda")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = lane_replay.launches
+    serve_by = dict(lane_replay.launches_by)
+    check(len(srows) == 300, f"serve-full gave {len(srows)} rows")
+    check(serve_launches > 0 and all("steps" in k for k in serve_by),
+          f"serve-full K1 launches {serve_by}")
+    for r in srows:
+        what = f"serve-full {r['bench']}/{r['prefetcher']}/{r['eviction']}"
+        check(r["backend"] == "cuda" and r["slo_source"] == "kernel",
+              f"{what}: backend {r['backend']}, slo {r['slo_source']}")
+        for m in ("decode_lat", "ttft"):
+            ps = [r[f"{m}_p{q}_us"] for q in (50, 95, 99)]
+            check(None not in ps and ps[0] <= ps[1] <= ps[2],
+                  f"{what}: {m} percentiles {ps}")
+    sprep = [sweep.prepare_cell(c, device="cuda") for c in scells]
+    sreqs = [ReplayRequest(tr, pf, cfg, step_bounds=sweep._step_bounds(tr))
+             for tr, cfg, pf, _ in sprep]
+    serve_batches = path_batches(backend, sreqs)
+    check({k: len(v) for k, v in serve_batches.items()} == serve_by,
+          f"serve-full lane batches != K1 launches {serve_by}")
+    chk = [i for i, c in enumerate(scells) if c.bench == SERVE_CHECK_BENCH]
+    for i, want in zip(chk, pool.map(legacy_replay, [sreqs[i] for i in chk])):
+        r, (tr, cfg, _, _) = srows[i], sprep[i]
+        same_row(r, want, f"serve-full {r['bench']}/{r['prefetcher']}/"
+                 f"{r['eviction']}/{r['device_frac']}")
+        for f, v in serve_latency_columns(tr, want.step_clocks, cfg).items():
+            check(r[f] == v, f"serve-full {r['bench']}/{r['prefetcher']}: "
+                  f"{f} {r[f]} != legacy {v}")
+    serve_train = sum(r["train_seconds"] for r in srows)
+    serve_replay = sum(r["seconds"] for r in srows)
+    print(f"phase 10 {card}: serve-full, {len(srows)} rows, all on cuda "
+          f"with kernel step clocks and ordered percentiles, in "
+          f"{serve_s:.1f} s (training {serve_train:.1f} s, replay "
+          f"{serve_replay:.1f} s); K1 launches {serve_launches}; the "
+          f"{len(chk)} {SERVE_CHECK_BENCH} rows equal the legacy engine",
+          flush=True)
+    print("bench,prefetcher,eviction,ratio,hit_rate,decode_p50_us,"
+          "decode_p99_us,ttft_p50_us,ttft_p99_us")
+    for r in srows:
+        if r["device_frac"] in (1.0, 0.5):
+            print(f"{r['bench']},{r['prefetcher']},{r['eviction']},"
+                  f"{r['device_frac']},{r['hit_rate']:.4f},"
+                  f"{r['decode_lat_p50_us']:.1f},{r['decode_lat_p99_us']:.1f},"
+                  f"{r['ttft_p50_us']:.1f},{r['ttft_p99_us']:.1f}")
+
+    # ---- phase 11: the mt-full matrix -----------------------------------
+    tcells = expand_scenario("mt-full")
+    k1.reset_counts()
+    t0 = time.perf_counter()
+    trows = sweep.run_sweep(tcells, device="cuda")
+    torch.cuda.synchronize()
+    mt_s = time.perf_counter() - t0
+    mt_launches = lane_replay.launches
+    mt_by = dict(lane_replay.launches_by)
+    check(len(trows) == 360, f"mt-full gave {len(trows)} rows")
+    for r in trows:
+        what = (f"mt-full {r['bench']}/{r['prefetcher']}/{r['eviction']}/"
+                f"{r['capacity_split']}/{r['device_frac']}")
+        check(r["backend"] == "cuda", f"{what}: backend {r['backend']}")
+        sds = [r[f] for f in ("hit_rate_t0", "hit_rate_t1", "slowdown_t0",
+                              "slowdown_t1")]
+        check(all(isinstance(x, float) for x in sds), f"{what}: {sds}")
+        check(r["interference_slowdown"] == max(sds[2:]),
+              f"{what}: interference {r['interference_slowdown']}")
+    tprep = [sweep.prepare_cell(c, device="cuda") for c in tcells]
+    treqs = [ReplayRequest(tr, pf, cfg, step_bounds=sweep._step_bounds(tr))
+             for tr, cfg, pf, _ in tprep]
+    solos, _ = sweep._solo_requests(tcells, tprep, [{} for _ in tcells],
+                                    None, "cuda")
+    # the cells' lanes and the solo replays' lanes pack into exactly the
+    # batches K1 launched: no replay of the path ran outside K1
+    mt_batches = path_batches(backend, treqs + list(solos.values()))
+    check({k: len(v) for k, v in mt_batches.items()} == mt_by,
+          f"mt-full lane batches != K1 launches {mt_by}")
+    mt_lanes = sum(int((b.iparams[:, 0] > 0).sum())
+                   for bs in mt_batches.values() for b in bs)
+    # the MVT+StreamTriad rows against the legacy engine, solo replays too
+    chk = [i for i, c in enumerate(tcells) if c.bench == MT_CHECK_BENCH]
+    solo_want = {}
+    for i in chk:
+        cell, (tr, cfg, _, dp) = tcells[i], tprep[i]
+        for t in range(2):
+            cap = sweep._solo_capacity(cfg, dp, t)
+            key = sweep._solo_key(cell, t, cap, cfg.eviction)
+            if key not in solo_want:
+                solo = mt_component_trace(tr, t)
+                scfg = UVMConfig(prediction_overhead_us=cell.prediction_us,
+                                 device_pages=cap, eviction=cfg.eviction)
+                solo_want[key] = ReplayRequest(solo, sweep.make_prefetcher(
+                    cell, solo, scfg, None, "cuda"), scfg)
+    jobs = [treqs[i] for i in chk] + list(solo_want.values())
+    legacy = list(pool.map(legacy_replay, jobs))
+    solo_cycles = dict(zip(solo_want, (int(st.cycles)
+                                       for st in legacy[len(chk):])))
+    for i, want in zip(chk, legacy):
+        r, cell, (tr, cfg, _, dp) = trows[i], tcells[i], tprep[i]
+        what = (f"mt-full {r['bench']}/{r['prefetcher']}/{r['eviction']}/"
+                f"{r['capacity_split']}/{r['device_frac']}")
+        same_row(r, want, what)
+        last = tenant_last_index(tr)
+        bounds = list(sweep._mt_step_bounds(tr))
+        for t in range(2):
+            th, ta = want.tenant_hits[t], want.tenant_accesses[t]
+            check(r[f"hit_rate_t{t}"] == th / ta, f"{what}: hit rate t{t}")
+            solo = solo_cycles[sweep._solo_key(
+                cell, t, sweep._solo_capacity(cfg, dp, t), cfg.eviction)]
+            sd = float(want.step_clocks[bounds.index(last[t] + 1)]) / solo
+            check(abs(r[f"slowdown_t{t}"] - sd) <= 1e-6 * sd,
+                  f"{what}: slowdown t{t} {r[f'slowdown_t{t}']} != legacy "
+                  f"{sd}")
+    mt_train = sum(r["train_seconds"] for r in trows)
+    mt_replay = sum(r["seconds"] for r in trows)
+    print(f"phase 11 {card}: mt-full, {len(trows)} rows, all on cuda with "
+          f"per-tenant hit rates and slowdowns, in {mt_s:.1f} s (training "
+          f"{mt_train:.1f} s, replay {mt_replay:.1f} s); K1 launches "
+          f"{mt_launches}, {mt_lanes} lanes ({len(solos)} solo replays); "
+          f"the {len(chk)} {MT_CHECK_BENCH} rows and their "
+          f"{len(solo_want)} solo replays equal the legacy engine",
+          flush=True)
+    print("split,prefetcher,eviction,mean_hit_t0,mean_hit_t1,"
+          "mean_slowdown_t0,mean_slowdown_t1,max_interference")
+    for split in ("shared", "0.5/0.5", "0.4/0.4"):
+        for pf in sweep.PREFETCHERS:
+            for ev in PORTED_POLICIES:
+                sel = [r for r in trows if r["capacity_split"] == split
+                       and r["prefetcher"] == pf and r["eviction"] == ev]
+                print(f"{split},{pf},{ev},"
+                      f"{np.mean([r['hit_rate_t0'] for r in sel]):.4f},"
+                      f"{np.mean([r['hit_rate_t1'] for r in sel]):.4f},"
+                      f"{np.mean([r['slowdown_t0'] for r in sel]):.4f},"
+                      f"{np.mean([r['slowdown_t1'] for r in sel]):.4f},"
+                      f"{max(r['interference_slowdown'] for r in sel):.4f}")
+
+    # ---- phase 12: kernel times -----------------------------------------
     # K1 per family x policy on the largest batch of the matrix
     for key, v in variants.items():
+        if len(key) > 2:
+            continue
         cand = [b for b in mbatches if kind_of(mreqs[b[0]]) == key]
         big = max(cand, key=lambda b: sum(len(mreqs[i].trace) for i in b))
         batch = backend.pack_batch([mreqs[i] for i in big])
@@ -465,15 +837,89 @@ def main(argv=None) -> int:
                  matrix_accesses=int(batch.iparams[:, 0].sum()),
                  ms=cuda_ms(lambda: lane_replay(**args_), reps=2),
                  bound_ms=k1_bound_ms(batch))
-        print(f"phase 8 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
+        print(f"phase 12 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
               f"launch on the matrix's largest batch ({len(big)} lanes, "
               f"{v['matrix_accesses']} accesses; bound {v['bound_ms']:.5f} "
               f"ms); golden batch {v['golden_ms']:.3f} ms, plain "
               f"{v['golden_plain_ms']:.1f} ms", flush=True)
+    # the step-clock and quota variants on the largest batch of each path,
+    # with the slowest lane's evictions (each one a scan of its span); the
+    # serve batches also without their step capture, and the shared
+    # multi-tenant batches also through the quota specialisation, to cost
+    # each variant's own branch on the same lanes
+    for path, by_key, by in (("serve", serve_batches, serve_by),
+                             ("mt", mt_batches, mt_by)):
+        for key, batches in sorted(by_key.items()):
+            big = max(batches, key=lambda b: int(b.iparams[:, 0].sum()))
+            args_ = big.kernel_args("cuda")
+            out = lane_replay(**args_)
+            out = (out[0] if big.steps_len else out).cpu()
+            v = variants.setdefault(key, new_variant(key))
+            v.update({f"{path}_launches": by.get(key, 0),
+                      f"{path}_lanes": int((big.iparams[:, 0] > 0).sum()),
+                      f"{path}_accesses": int(big.iparams[:, 0].sum()),
+                      f"{path}_max_lane_evictions": int(out[:, 7].max()),
+                      f"{path}_ms": cuda_ms(lambda: lane_replay(**args_),
+                                            reps=1),
+                      f"{path}_bound_ms": k1_bound_ms(big)})
+            same = None
+            if key[2:] == ("steps",):
+                other = (dataclasses.replace(big, sids=None, steps_len=0)
+                         if path == "serve"
+                         else dataclasses.replace(big, quotas=True))
+                o_args = other.kernel_args("cuda")
+                same = "without steps" if path == "serve" else "as quotas"
+                v[f"{path}_ms_{same.replace(' ', '_')}"] = cuda_ms(
+                    lambda: lane_replay(**o_args), reps=1)
+            print(f"phase 12 {card}: K1 {'/'.join(key)} "
+                  f"{v[path + '_ms']:.2f} ms per launch on {path}-full's "
+                  f"largest batch ({v[path + '_lanes']} lanes, "
+                  f"{v[path + '_accesses']} accesses, at most "
+                  f"{v[path + '_max_lane_evictions']} evictions a lane; "
+                  f"bound {v[path + '_bound_ms']:.5f} ms); "
+                  f"{v[path + '_launches']} launches"
+                  + ("" if same is None else
+                     f"; {same}: "
+                     f"{v[path + '_ms_' + same.replace(' ', '_')]:.2f} ms"),
+                  flush=True)
+    # the per-eviction victim scan against the scanned span: one serve lane
+    # (ServeDecode, tree/lru at half its working set), its pages moved up
+    # by whole spans so that each eviction's scan reads more empty slots
+    # while the replay stays the same (lru and the tree's node counts see
+    # only page differences within 2 MB windows)
+    tr = sweep.load_trace("ServeDecode", 1.0, 0, None)
+    cfg = UVMConfig(device_pages=int(tr.working_set_pages * 0.5))
+    base = backend.pack_batch([ReplayRequest(tr, TreePrefetcher(), cfg)])
+    base_out = None
+    scan_span = []
+    for extra in (0, 1, 3, 7):
+        shifted = dataclasses.replace(
+            base, pages=base.pages + extra * base.span,
+            span=base.span * (1 + extra))
+        s_args = shifted.kernel_args("cuda")
+        out = lane_replay(**s_args).cpu()
+        base_out = out if base_out is None else base_out
+        check(torch.equal(out, base_out), f"the shifted lane (span "
+              f"{shifted.span}) replays differently")
+        ms = cuda_ms(lambda: lane_replay(**s_args), reps=2)
+        # K1 scans up to the root window of the lane's highest page
+        top = int(shifted.pages[0, :len(tr)].max())
+        scan_span.append({
+            "span": shifted.span,
+            "scanned": min(shifted.span, (top // k1.ROOT_PAGES + 1)
+                           * k1.ROOT_PAGES),
+            "ms": ms, "evictions": int(out[0, 7]),
+            "us_per_eviction": ms * 1e3 / float(out[0, 7])})
+    print(f"phase 12 {card}: K1 tree/lru on one ServeDecode lane "
+          f"({int(base_out[0, 7])} evictions in {len(tr)} accesses, "
+          f"{tr.working_set_pages} pages of working set) against the slots "
+          "each eviction scans: " + ", ".join(
+              f"{x['scanned']} slots {x['ms']:.1f} ms "
+              f"({x['us_per_eviction']:.2f} us per eviction)"
+              for x in scan_span), flush=True)
     # K1 on the main path's learned batch against its plain version
-    k1_batch = backend.pack_batch(
-        [learned_reqs[i] for i in backend.pack_lanes(learned_reqs)[0]])
-    err, _, plain_s = k1_vs_plain(k1_batch)
+    plain, plain_s = main_plain.result()
+    err, _ = k1_against(k1_batch, plain)
     check(err == 0.0, f"K1 vs plain on the main-path batch: max diff {err}")
     k1_err = max(k1_err, err)
     k1_args = k1_batch.kernel_args("cuda")
@@ -501,7 +947,7 @@ def main(argv=None) -> int:
         tables_plain_ms=t_plain_s * 1e3, tables_bound_ms=k1_bound_ms(t_batch),
         tables_max_abs_err=err)
     tv = variants[("tree", "lru")]
-    print(f"phase 8 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
+    print(f"phase 12 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
           f"on the tables' tree batch ({len(tidx)} lanes, "
           f"{tv['tables_accesses']} accesses), equal to its plain version "
           f"({tv['tables_plain_ms']:.1f} ms on the host)", flush=True)
@@ -525,7 +971,8 @@ def main(argv=None) -> int:
     k2_bound_bytes = k2_bytes / HBM_BYTES_S * 1e3
     k2_bound_ops = k2_flops / F32_FLOPS * 1e3
     paths = {"main": launches["lane_replay"], "tables": tables_launches,
-             "oversub-full": matrix_launches}
+             "oversub-full": matrix_launches, "serve-full": serve_launches,
+             "mt-full": mt_launches}
     kernels = [
         {"name": "lane_replay", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": sum(paths.values()),
@@ -533,7 +980,8 @@ def main(argv=None) -> int:
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_s * 1e3,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
          "variants": [dict(v, bound_by="bytes", library_ms=None)
-                      for v in variants.values()]},
+                      for v in variants.values()],
+         "scan_vs_span": scan_span},
         {"name": "hlsh_attention", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["hlsh_attention"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -541,7 +989,7 @@ def main(argv=None) -> int:
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations", "library_ms": k2_lib_ms},
     ]
-    print(f"phase 8 {card}: K1 {k1_ms:.3f} ms per launch on the main path's "
+    print(f"phase 12 {card}: K1 {k1_ms:.3f} ms per launch on the main path's "
           f"learned batch ({len(k1_batch.pages)} lanes padded, {n_acc} "
           f"accesses; plain version {plain_s * 1e3:.1f} ms on the host); K2 "
           f"{k2_ms:.4f} ms at ({b},{n},{d}) (plain {k2_plain_ms:.4f} ms, "
@@ -552,9 +1000,11 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "rows": rows,
                        "table10": t10, "table11": t11,
-                       "oversub_full": mrows, "kernels": kernels,
+                       "oversub_full": mrows, "serve_full": srows,
+                       "mt_full": trows, "kernels": kernels,
                        "main_path_s": main_s, "tables_s": tables_s,
-                       "oversub_full_s": matrix_s}, f, indent=1)
+                       "oversub_full_s": matrix_s, "serve_full_s": serve_s,
+                       "mt_full_s": mt_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,12 @@
 // K1: multi-lane UVM replay for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/uvm/backends/pallas_backend.py::
-// _lane_replay_fn (inner `kernel`, pl.pallas_call of the lane grid) for every
-// single-tenant lane family -- demand (none/block), tree (the UVMSmart
-// baseline), learned and oracle -- under the lru, random and hotcold
-// eviction policies, with shared-capacity tenancy (the tenant-0 hit count).
-// Step clocks and tenant quotas are later work.
+// _lane_replay_fn (inner `kernel`, pl.pallas_call of the lane grid): every
+// lane family -- demand (none/block), tree (the UVMSmart baseline), learned
+// and oracle -- under the lru, random and hotcold eviction policies, with
+// the kernel's two optional branches: step-clock capture (the replay clock
+// after the last access of each step window) and two-tenant tenancy, shared
+// (the tenant-0 hit count) or split by hard per-tenant quotas.
 //
 // One thread block per lane (one sweep cell).  Thread 0 replays the lane's
 // accesses in order -- hit / late / fault classification, the float64 clock,
@@ -32,9 +33,25 @@
 // separate SMs; the window classify, the prefix counts and the victim scan
 // are the block's parallel work, each a few barriers long.  The victim scan
 // is the one piece that grows with the state: it reads every slot of the
-// lane's own span (not the batch's padded span) once per eviction.  Family
-// and policy are template parameters, so each (family, policy) kernel
-// carries only its own branches.
+// lane's own span (not the batch's padded span) once per eviction.  Family,
+// policy and the quota eviction are template parameters, so each kernel
+// carries only its own branches; step capture is one predicated store per
+// access, taken when the wrapper passes a window-clock buffer.
+//
+// Step clocks: each access carries its window id (sids); thread 0 stores the
+// clock after the MSHR trim -- final for the access, eviction never moves
+// it -- into steps[sid], so a window keeps the clock after its last access
+// (the legacy recording point).  Slot steps_len is the trash slot of
+// accesses past the last bound.  Empty windows are never written; the host
+// forward-fills them.
+//
+// Tenant quotas: a quota lane (q0 >= 0) keeps rc0, the resident pages of
+// tenant 0 (dense slots below the tenant boundary bnd), at every insertion
+// and eviction.  Eviction runs while either tenant holds more than its
+// allowance (its quota plus the spill pool the co-tenant does not borrow),
+// trims tenant 0 first, and scans only the over-allowance tenant's slots,
+// the contiguous range [0, bnd) or [bnd, span) clamped to the lane's span
+// (bnd may lie outside it when the lane touches one tenant only).
 //
 // Exactness: the reference engines round every float64 product before the
 // dependent add.  Every step of the clock chain is written with
@@ -48,10 +65,11 @@
 // Lane state lives in device memory the wrapper allocates: arrival (f64,
 // +inf = not resident), stamp (i32 touch stamp), pfu (u8
 // prefetched-and-unused), freq (i32, hotcold), prio (u32, random), the tree's
-// per-level node counts (span >> (4 + lv) i32 for lv = 0..5), and the MSHR
-// buffer of buf_len = mshr + 1 f64.  Oracle lanes carry one more state slot,
-// the trash slot at index span: padded first-touch entries point there, it
-// reads resident and is never a victim.
+// per-level node counts (span >> (4 + lv) i32 for lv = 0..5), the MSHR
+// buffer of buf_len = mshr + 1 f64, and the steps_len + 1 f64 window clocks.
+// Oracle lanes carry one more state slot, the trash slot at index span:
+// padded first-touch entries point there, it reads resident and is never a
+// victim.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,18 +127,34 @@ __device__ __forceinline__ int block_prefix(bool flag, int* s_warp, int* total) 
 struct Shared {
   double clock, pcie_free;
   int counter, p, fault;
+  int ev_lo, ev_hi;   // slot range of the current victim search
 };
 
-template <int FAMILY, int POLICY>
+// Per-tenant quota allowances (repro.uvm.eviction.Tenancy.allowed in int32):
+// true while a tenant is over its allowance; *tenant0 = whether tenant 0 is
+// (it is trimmed first).
+__device__ __forceinline__ bool over_allowance(int resident, int rc0, int cap,
+                                               int q0, int q1, bool* tenant0) {
+  const int rc1 = resident - rc0;
+  const int spill = cap - q0 - q1;
+  const int a0 = q0 + max(0, spill - max(0, rc1 - q1));
+  const int a1 = q1 + max(0, spill - max(0, rc0 - q0));
+  *tenant0 = rc0 > a0;
+  return rc0 > a0 || rc1 > a1;
+}
+
+template <int FAMILY, int POLICY, bool QUOTAS>
 __global__ void __launch_bounds__(THREADS)
 lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
                    const int* __restrict__ ft_all, const int* __restrict__ pos_all,
+                   const int* __restrict__ sids_all,
                    const double* __restrict__ fparams,
                    const int* __restrict__ iparams, double* arrival_all,
                    int* stamp_all, unsigned char* pfu_all, int* freq_all,
                    unsigned* prio_all, int* counts_all, double* buf_all,
-                   double* __restrict__ out, int t_max, int span, int buf_len,
-                   int ft_len, int lookahead) {
+                   double* __restrict__ out, double* steps_all, int t_max,
+                   int span, int buf_len, int ft_len, int lookahead,
+                   int steps_len) {
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const double INF = __longlong_as_double(0x7ff0000000000000LL);
@@ -138,6 +172,9 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   const int* lpred = family == FAM_LEARNED ? preds + (size_t)lane * t_max : nullptr;
   const int* lft = oracle ? ft_all + (size_t)lane * ft_len : nullptr;
   const int* lpos = oracle ? pos_all + (size_t)lane * t_max : nullptr;
+  // window clocks: null when the batch captures none
+  const int* lsid = steps_all ? sids_all + (size_t)lane * t_max : nullptr;
+  double* steps = steps_all ? steps_all + (size_t)lane * (steps_len + 1) : nullptr;
   const double* fp = fparams + (size_t)lane * N_FPARAMS;
   const int* ip = iparams + (size_t)lane * N_IPARAMS;
 
@@ -162,6 +199,8 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
     if (randomp) prio[i] = 0;
   }
   for (int i = tid; i < buf_len; i += THREADS) buf[i] = INF;
+  if (steps)
+    for (int i = tid; i <= steps_len; i += THREADS) steps[i] = 0.0;
   __syncthreads();
 
   const double cpa = fp[0], page_tx = fp[1], ff = fp[2], ptw = fp[3];
@@ -172,6 +211,9 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   const int n_ft = ip[4];
   const unsigned lane_lo = (unsigned)ip[5];
   const int bnd = ip[6];
+  // quota lanes: q0 >= 0 (q0 = -1 is shared capacity)
+  const int q0 = ip[7], q1 = ip[8];
+  const bool split = QUOTAS && cap >= 0 && q0 >= 0;
 
   __shared__ unsigned long long s_key[NWARPS];
   __shared__ int s_idx[NWARPS];
@@ -195,12 +237,25 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   atomicMax(&s_hi, hi);
   __syncthreads();
   const int scan_end = min(span, (s_hi / ROOT_PAGES + 1) * ROOT_PAGES);
+  // the tenant boundary clamped into the scanned slots
+  const int bnd_slot = min(max(bnd, 0), scan_end);
+  // thread 0: whether the lane must evict, and for a quota lane the slots
+  // of the tenant to trim (published in sh before the search's barrier)
+  auto next_victim = [&](int resident_, int rc0_) -> bool {
+    if (!split) return cap >= 0 && resident_ > cap;
+    bool tenant0;
+    if (!over_allowance(resident_, rc0_, cap, q0, q1, &tenant0)) return false;
+    sh.ev_lo = tenant0 ? 0 : bnd_slot;
+    sh.ev_hi = tenant0 ? bnd_slot : scan_end;
+    return true;
+  };
 
   // the scalar carries live in thread 0's registers; thread 0 publishes the
   // ones a block phase reads in `sh` before it
   double clock = 0.0, pcie_free = 0.0, next_free = 0.0;
   int counter = 0, resident = 0, nbuf = 0, hits = 0, late = 0, faults = 0;
   int issued = 0, used = 0, migrated = 0, evicted = 0, wbacks = 0, th0 = 0;
+  int rc0 = 0;   // quota lanes: resident pages of tenant 0
 
   for (int t = 0; t < n; ++t) {
     bool need_victim = false, faulted = false;
@@ -233,6 +288,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         if (hotcold) freq[p] = 0;     // touches since migration
         if (randomp) prio[p] = rand_score(lane_lo + (unsigned)p, (unsigned)counter);
         resident += 1;
+        if (QUOTAS) rc0 += p < bnd;
         migrated += 1;
         pcie_free = add_rn(start, page_tx);
         if (tree) {
@@ -280,6 +336,9 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           }
           counter += k;
           resident += k;
+          // the 64 KB block lies on the faulting page's side of the
+          // (root-aligned) tenant boundary
+          if (QUOTAS && p < bnd) rc0 += k;
           migrated += k;
           issued += k;
           pcie_free = end;
@@ -302,6 +361,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           if (randomp) prio[pred] = rand_score(lane_lo + (unsigned)pred, (unsigned)counter);
           counter += 1;
           resident += 1;
+          if (QUOTAS) rc0 += pred < bnd;
           migrated += 1;
           issued += 1;
           pcie_free = end;
@@ -371,6 +431,8 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         if (tid == 0) {
           counter += k;
           resident += k;
+          // the 2 MB root window lies on the faulting page's side
+          if (QUOTAS && p < bnd) rc0 += k;
           migrated += k;
           issued += k;
           pcie_free = end;
@@ -399,7 +461,11 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         const double ex_ready = add_rn(add_rn(sh.clock, pfo), extra_lat);
         const double ex_start = fmax(sh.pcie_free, ex_ready);
         const double end = add_rn(ex_start, mul_rn((double)k, page_tx));
-        if (nonres && pre <= ORACLE_MAX_EXTRAS) {
+        const bool take = nonres && pre <= ORACLE_MAX_EXTRAS;
+        // a lookahead window can straddle the tenant boundary: count the
+        // tenant-0 insertions entry by entry
+        const int k0 = QUOTAS ? __syncthreads_count(take && idx < bnd) : 0;
+        if (take) {
           const int rank = pre - 1;
           double arr;
           if (batch) {
@@ -421,6 +487,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         if (tid == 0) {
           counter += k;
           resident += k;
+          rc0 += k0;
           migrated += k;
           issued += k;
           pcie_free = end;
@@ -443,12 +510,15 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         buf[mi] = INF;
         nbuf -= 1;
       }
-      need_victim = cap >= 0 && resident > cap;
+      if (steps) steps[lsid[t]] = clock;
+      need_victim = next_victim(resident, rc0);
     }
 
     // eviction under oversubscription: the whole block searches the
     // victim; an in-flight victim is retouched at MRU and ends the loop
     while (__syncthreads_or(need_victim)) {
+      const int ev_lo = split ? sh.ev_lo : 0;
+      const int ev_hi = split ? sh.ev_hi : scan_end;
       // lru keys (stamp << 32) | slot and random keys (prio << 21) | slot
       // carry the slot, so their minimum is the first index on ties; the
       // hotcold key (freq << 32) | stamp carries none, and its slot rides
@@ -456,7 +526,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
       // trash slot.
       unsigned long long best = ~0ULL;
       int bi = IMAX;
-      for (int i = tid; i < scan_end; i += THREADS) {
+      for (int i = ev_lo + tid; i < ev_hi; i += THREADS) {
         if (hotcold) {
           if (arrival[i] < INF) {
             const unsigned long long key =
@@ -504,6 +574,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           arrival[vi] = INF;
           pfu[vi] = 0;
           resident -= 1;
+          if (QUOTAS) rc0 -= vi < bnd;
           evicted += 1;
           if (tree) {
             for (int lv = 0; lv <= TREE_LEVELS; ++lv) counts[lv_off[lv] + (vi >> (4 + lv))] -= 1;
@@ -512,7 +583,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
             wbacks += 1;
             pcie_free = add_rn(pcie_free, page_tx);
           }
-          need_victim = resident > cap;
+          need_victim = next_victim(resident, rc0);
         }
       }
     }
@@ -542,32 +613,40 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
 
 extern "C" int lane_replay_launch(const int* pages, const int* preds,
                                   const int* ft, const int* pos,
-                                  const double* fparams, const int* iparams,
-                                  double* arrival, int* stamp,
-                                  unsigned char* pfu, int* freq,
+                                  const int* sids, const double* fparams,
+                                  const int* iparams, double* arrival,
+                                  int* stamp, unsigned char* pfu, int* freq,
                                   unsigned* prio, int* counts, double* buf,
-                                  double* out, int n_lanes, int t_max,
-                                  int span, int buf_len, int family,
-                                  int policy, int ft_len, int lookahead,
+                                  double* out, double* steps, int n_lanes,
+                                  int t_max, int span, int buf_len,
+                                  int family, int policy, int ft_len,
+                                  int lookahead, int steps_len, int quotas,
                                   void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
-  if (family < 0 || family > FAM_ORACLE || policy < 0 || policy > POL_HOTCOLD)
+  if (family < 0 || family > FAM_ORACLE || policy < 0 || policy > POL_HOTCOLD ||
+      steps_len < 0 || (steps_len > 0) != (steps != nullptr && sids != nullptr))
     return (int)cudaErrorInvalidValue;
-  // one specialisation per (family, policy): the branches of the other
-  // families and policies are compiled out
+  // one specialisation per (family, policy, quotas): the branches of the
+  // other families and policies, and the quota eviction where no lane has
+  // quotas, are compiled out
   typedef void (*Kernel)(const int*, const int*, const int*, const int*,
-                         const double*, const int*, double*, int*,
+                         const int*, const double*, const int*, double*, int*,
                          unsigned char*, int*, unsigned*, int*, double*,
-                         double*, int, int, int, int, int);
-#define K1_ROW(F) {lane_replay_kernel<F, POL_LRU>, \
-                   lane_replay_kernel<F, POL_RANDOM>, \
-                   lane_replay_kernel<F, POL_HOTCOLD>}
-  static const Kernel kernels[4][3] = {K1_ROW(FAM_DEMAND), K1_ROW(FAM_TREE),
-                                       K1_ROW(FAM_LEARNED), K1_ROW(FAM_ORACLE)};
+                         double*, double*, int, int, int, int, int, int);
+#define K1_ROW(F, Q) {lane_replay_kernel<F, POL_LRU, Q>, \
+                      lane_replay_kernel<F, POL_RANDOM, Q>, \
+                      lane_replay_kernel<F, POL_HOTCOLD, Q>}
+  static const Kernel kernels[2][4][3] = {
+      {K1_ROW(FAM_DEMAND, false), K1_ROW(FAM_TREE, false),
+       K1_ROW(FAM_LEARNED, false), K1_ROW(FAM_ORACLE, false)},
+      {K1_ROW(FAM_DEMAND, true), K1_ROW(FAM_TREE, true),
+       K1_ROW(FAM_LEARNED, true), K1_ROW(FAM_ORACLE, true)}};
 #undef K1_ROW
-  kernels[family][policy]<<<n_lanes, THREADS, 0, (cudaStream_t)stream>>>(
-      pages, preds, ft, pos, fparams, iparams, arrival, stamp, pfu, freq,
-      prio, counts, buf, out, t_max, span, buf_len, ft_len, lookahead);
+  kernels[quotas ? 1 : 0][family][policy]<<<n_lanes, THREADS, 0,
+                                            (cudaStream_t)stream>>>(
+      pages, preds, ft, pos, sids, fparams, iparams, arrival, stamp, pfu,
+      freq, prio, counts, buf, out, steps, t_max, span, buf_len, ft_len,
+      lookahead, steps_len);
   return (int)cudaGetLastError();
 }
 

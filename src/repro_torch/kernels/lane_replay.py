@@ -1,25 +1,30 @@
 """K1: multi-lane UVM replay -- wrapper of ``csrc/lane_replay.cu``.
 
 Replaces the reference's Pallas kernel
-``repro.uvm.backends.pallas_backend._lane_replay_fn`` for every
-single-tenant lane family (``demand``, ``tree``, ``learned``, ``oracle``)
-under the three eviction policies (``lru``, ``random``, ``hotcold``), with
-shared-capacity tenancy.  The host side (lane packing, parameter blocks,
-stats unpacking) is ``repro_torch.uvm.backends.cuda_backend``.
+``repro.uvm.backends.pallas_backend._lane_replay_fn``: every lane family
+(``demand``, ``tree``, ``learned``, ``oracle``) under the three eviction
+policies (``lru``, ``random``, ``hotcold``), with the kernel's two optional
+branches, step-clock capture and two-tenant tenancy (shared capacity, or
+hard per-tenant quotas with a spill pool).  The host side (lane packing,
+parameter blocks, stats unpacking) is
+``repro_torch.uvm.backends.cuda_backend``.
 
 Inputs per lane (one row each): ``pages`` (L, T) int32 page ids relative to
 the lane's span; ``preds`` (L, T) int32 learned decision stream (-1 = no
 prediction) for learned lanes; ``ft`` (L, F) int32 first-touch page stream
 padded with the trash slot ``span`` and ``pos`` (L, T) int32 stream position
-per access for oracle lanes; ``fparams`` (L, 8) float64 and ``iparams``
-(L, 9) int32 in the reference's layout.  Output: (L, 10) float64,
-``STAT_FIELDS`` then the tenant-0 hit count.
+per access for oracle lanes; ``sids`` (L, T) int32 step-window id per access
+for step-clock lanes; ``fparams`` (L, 8) float64 and ``iparams`` (L, 9)
+int32 in the reference's layout (``iparams[:, 6:9]``: the dense tenant
+boundary and the quotas q0, q1, q0 = -1 for shared capacity).  Output:
+(L, 10) float64, ``STAT_FIELDS`` then the tenant-0 hit count, and for
+step-clock batches the (L, steps_len) float64 window clocks.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +46,9 @@ FAMILIES = ("demand", "tree", "learned", "oracle")
 POLICIES = ("lru", "random", "hotcold")
 #: one thread per oracle window entry
 MAX_ORACLE_LOOKAHEAD = 512
+#: per-lane step-clock window ceiling: the window clocks are steps_len + 1
+#: float64 per lane
+MAX_LANE_STEPS = 1 << 16
 #: the random victim key is (prio << 21) | slot: every state slot (span +
 #: the oracle trash slot) must fit the low 21 bits
 RANDOM_KEY_SLOTS = 1 << 21
@@ -49,15 +57,25 @@ _IMAX64 = 2 ** 63 - 1
 _INF = math.inf
 
 
-def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
-                       family: str, policy: str, lookahead: int):
+def _replay_lane_plain(pages, preds, ft, pos, sids, fp, ip, span: int,
+                       family: str, policy: str, lookahead: int,
+                       steps_len: int, quotas: bool):
     """One lane's replay: the kernel's operation order, as a per-access
     loop.  The span arrays are tensors; the scalar carries are Python floats
     and ints (IEEE float64, no FMA), so the clock chain rounds as the
-    kernel's does."""
+    kernel's does.  Returns the stats row and, with ``steps_len``, the
+    lane's window clocks."""
     cpa, page_tx, ff, ptw, pcie_lat, pfo, extra_lat, page_size = fp
     n, cap, mshr, has_block = ip[0], ip[1], ip[2], ip[3] > 0
     n_ft, lane_lo, bnd = ip[4], ip[5] & 0xFFFFFFFF, ip[6]
+    # per-tenant quotas (q0 < 0: shared capacity); rc0 counts the resident
+    # pages of tenant 0 (slots below the dense boundary)
+    q0, q1 = ip[7], ip[8]
+    split = quotas and q0 >= 0
+    rc0 = 0
+    # window clocks: slot steps_len is the trash slot of accesses past the
+    # last bound
+    steps = [0.0] * (steps_len + 1)
     tree, oracle = family == "tree", family == "oracle"
     randomp, hotcold = policy == "random", policy == "hotcold"
     # oracle lanes get a trash slot at ``span``: padded first-touch entries
@@ -88,6 +106,8 @@ def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
     def insert(idx: torch.Tensor, arr, first: int) -> None:
         """Extras ``idx`` (in emission order) become resident at ``arr``,
         stamped ``first``, ``first + 1``, ...; policy state at insert."""
+        nonlocal rc0
+        rc0 += int((idx < bnd).sum())
         ranks = torch.arange(first, first + len(idx), dtype=torch.int64)
         arrival[idx] = arr
         pfu[idx] = True
@@ -136,6 +156,7 @@ def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
             if randomp:
                 prio[p] = eviction_score(lane_lo + p, counter)
             resident += 1
+            rc0 += p < bnd
             migrated += 1
             pcie_free = start + page_tx
         elif hotcold:
@@ -243,9 +264,25 @@ def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
             oldest = min(buf)
             buf.remove(oldest)
             clock = max(clock, oldest)
-        while cap >= 0 and resident > cap:
+        if steps_len:
+            # the clock is final for this access: eviction never moves it
+            steps[sids[t]] = clock
+        while cap >= 0:
             # the real slots only: never the oracle trash slot
             res = arrival[:span] < _INF
+            if split:
+                # trim whichever tenant is over its allowance (quota plus
+                # the spill the co-tenant does not borrow), tenant 0 first;
+                # the victim is masked to that tenant's slots
+                rc1 = resident - rc0
+                spill = cap - q0 - q1
+                over0 = rc0 > q0 + max(0, spill - max(0, rc1 - q1))
+                over1 = rc1 > q1 + max(0, spill - max(0, rc0 - q0))
+                if not (over0 or over1):
+                    break
+                res = res & ((iota < bnd) if over0 else (iota >= bnd))
+            elif resident <= cap:
+                break
             if randomp:
                 key = torch.where(res, (prio[:span] << 21) | iota, _IMAX64)
             elif hotcold:
@@ -264,6 +301,7 @@ def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
             arrival[vi] = _INF
             pfu[vi] = False
             resident -= 1
+            rc0 -= vi < bnd
             evicted += 1
             if tree:
                 counts[nodes(vi)] -= 1
@@ -272,14 +310,18 @@ def _replay_lane_plain(pages, preds, ft, pos, fp, ip, span: int,
                 pcie_free = pcie_free + page_tx
     if buf:
         clock = max(clock, max(buf))
-    return [clock, hits, late, faults, issued, used, migrated, evicted,
-            (migrated + wbacks) * page_size, th0]
+    return ([clock, hits, late, faults, issued, used, migrated, evicted,
+             (migrated + wbacks) * page_size, th0], steps[:steps_len])
 
 
-def _check_kind(family: str, policy: str, span: int, lookahead: int) -> None:
+def _check_kind(family: str, policy: str, span: int, lookahead: int,
+                steps_len: int) -> None:
     if family not in FAMILIES or policy not in POLICIES:
         raise ValueError(f"lane_replay: unknown family {family!r} or "
                          f"policy {policy!r}")
+    if not 0 <= steps_len <= MAX_LANE_STEPS:
+        raise ValueError(f"lane_replay: {steps_len} step windows outside "
+                         f"0..{MAX_LANE_STEPS}")
     if policy == "random" and span + 1 > RANDOM_KEY_SLOTS:
         raise ValueError(
             f"lane_replay: span {span} overflows the random-policy victim "
@@ -294,21 +336,30 @@ def lane_replay_plain(pages: torch.Tensor, preds: Optional[torch.Tensor],
                       span: int, *, family: str, policy: str = "lru",
                       ft: Optional[torch.Tensor] = None,
                       pos: Optional[torch.Tensor] = None,
-                      lookahead: int = 0) -> torch.Tensor:
+                      lookahead: int = 0,
+                      sids: Optional[torch.Tensor] = None,
+                      steps_len: int = 0, quotas: bool = False):
     """The plain PyTorch version of :func:`lane_replay`, lane by lane."""
-    _check_kind(family, policy, span, lookahead)
-    rows = []
+    _check_kind(family, policy, span, lookahead, steps_len)
+    rows, steps = [], []
     for lane in range(pages.shape[0]):
         ip = [int(x) for x in iparams[lane].tolist()]
         n = ip[0]
-        rows.append(_replay_lane_plain(
+        row, lane_steps = _replay_lane_plain(
             pages[lane, :n].tolist(),
             preds[lane, :n].tolist() if family == "learned" else None,
             ft[lane].long() if family == "oracle" else None,
             pos[lane, :n].tolist() if family == "oracle" else None,
+            sids[lane, :n].tolist() if steps_len else None,
             [float(x) for x in fparams[lane].tolist()], ip, span, family,
-            policy, lookahead))
-    return torch.tensor(rows, dtype=torch.float64).reshape(-1, N_STATS)
+            policy, lookahead, steps_len, quotas)
+        rows.append(row)
+        steps.append(lane_steps)
+    out = torch.tensor(rows, dtype=torch.float64).reshape(-1, N_STATS)
+    if not steps_len:
+        return out
+    return out, torch.tensor(steps, dtype=torch.float64).reshape(
+        -1, steps_len)
 
 
 def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
@@ -316,19 +367,25 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
                 buf_len: int, *, family: str, policy: str = "lru",
                 ft: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
-                lookahead: int = 0) -> torch.Tensor:
-    """Replay every lane; returns (L, 10) float64 stats.  Launches K1 for
-    CUDA tensors (counted in ``lane_replay.launches``, and per (family,
-    policy) in ``lane_replay.launches_by``); CPU tensors take the plain
+                lookahead: int = 0, sids: Optional[torch.Tensor] = None,
+                steps_len: int = 0, quotas: bool = False):
+    """Replay every lane; returns (L, 10) float64 stats, and with
+    ``steps_len > 0`` also the (L, steps_len) float64 window clocks.
+    Launches K1 for CUDA tensors (counted in ``lane_replay.launches``, and
+    per kind in ``lane_replay.launches_by``); CPU tensors take the plain
     version.  ``span`` is the dense state length of every lane, ``buf_len``
     the MSHR buffer length (largest ``mshr`` + 1); ``family`` is one of
     ``FAMILIES`` (``preds`` only for learned lanes); oracle lanes pass
-    ``ft``, ``pos`` and their ``lookahead``."""
-    _check_kind(family, policy, span, lookahead)
+    ``ft``, ``pos`` and their ``lookahead``.  Step-clock lanes pass
+    ``sids``, the window id of every access (``steps_len`` = past the last
+    bound), and ``steps_len``; ``quotas`` builds the per-tenant quota
+    eviction for the lanes whose ``iparams[:, 7]`` (q0) is >= 0."""
+    _check_kind(family, policy, span, lookahead, steps_len)
     if pages.device.type == "cpu":
         return lane_replay_plain(pages, preds, fparams, iparams, span,
                                  family=family, policy=policy, ft=ft,
-                                 pos=pos, lookahead=lookahead)
+                                 pos=pos, lookahead=lookahead, sids=sids,
+                                 steps_len=steps_len, quotas=quotas)
     n_lanes, t_max = pages.shape
     expect = [("pages", pages, torch.int32, (n_lanes, t_max)),
               ("fparams", fparams, torch.float64, (n_lanes, N_FPARAMS)),
@@ -338,6 +395,8 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
     if family == "oracle":
         expect.append(("pos", pos, torch.int32, (n_lanes, t_max)))
         expect.append(("ft", ft, torch.int32, (n_lanes, None)))
+    if steps_len:
+        expect.append(("sids", sids, torch.int32, (n_lanes, t_max)))
     for name, t, dtype, shape in expect:
         if (t is None or t.device != pages.device or t.dtype != dtype
                 or t.dim() != 2 or t.shape[0] != n_lanes
@@ -354,7 +413,7 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
     lib = build.load("lane_replay")
     fn = lib.lane_replay_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     dev = pages.device
     state_len = span + 1 if family == "oracle" else span
@@ -375,22 +434,36 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
                              device=dev)
     buf = torch.empty((n_lanes, buf_len), dtype=torch.float64, device=dev)
     out = torch.empty((n_lanes, N_STATS), dtype=torch.float64, device=dev)
+    # window clocks: steps_len + 1 per lane, the last one the trash slot
+    steps = (torch.empty((n_lanes, steps_len + 1), dtype=torch.float64,
+                         device=dev) if steps_len else None)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(ptr(pages), ptr(preds if family == "learned" else None),
              ptr(ft if family == "oracle" else None),
-             ptr(pos if family == "oracle" else None), ptr(fparams),
+             ptr(pos if family == "oracle" else None),
+             ptr(sids if steps_len else None), ptr(fparams),
              ptr(iparams), ptr(arrival), ptr(stamp), ptr(pfu), ptr(freq),
-             ptr(prio), ptr(counts), ptr(buf), ptr(out), n_lanes, t_max,
-             span, buf_len, FAMILIES.index(family), POLICIES.index(policy),
-             ft_len, lookahead, stream)
+             ptr(prio), ptr(counts), ptr(buf), ptr(out), ptr(steps),
+             n_lanes, t_max, span, buf_len, FAMILIES.index(family),
+             POLICIES.index(policy), ft_len, lookahead, steps_len,
+             int(quotas), stream)
     build.check(lib, err, "lane_replay")
     lane_replay.launches += 1
-    key = (family, policy)
+    key = kind_key(family, policy, steps_len, quotas)
     lane_replay.launches_by[key] = lane_replay.launches_by.get(key, 0) + 1
-    return out
+    return out if not steps_len else (out, steps[:, :steps_len])
+
+
+def kind_key(family: str, policy: str, steps_len: int = 0,
+             quotas: bool = False) -> Tuple[str, ...]:
+    """The launch-count key of one K1 variant: (family, policy), plus
+    ``"steps"`` for step-clock batches and ``"quotas"`` for quota
+    batches."""
+    return ((family, policy) + (("steps",) if steps_len else ())
+            + (("quotas",) if quotas else ()))
 
 
 def reset_counts() -> None:

@@ -8,12 +8,13 @@ input streams and the same stats layout.  The kernel
 (``repro_torch.kernels.lane_replay``) runs one thread block per lane on the
 card.
 
-This backend replays every single-tenant lane family (``demand``,
-``tree``, ``learned``, ``oracle``) under the ``lru``, ``random`` and
-``hotcold`` eviction policies, single-tenant or with shared-capacity
-tenancy.  There is no silent fallback: a request this backend declines
-(step clocks, timelines, tenant quotas, lanes past the kernel's ceilings)
-raises, naming the later slice of the port that brings it.
+This backend replays every lane family (``demand``, ``tree``, ``learned``,
+``oracle``) under the ``lru``, ``random`` and ``hotcold`` eviction
+policies, single-tenant or two-tenant (shared capacity or hard per-tenant
+quotas), with or without step clocks (``ReplayRequest.step_bounds``).
+There is no silent fallback: a request this backend declines (timelines,
+lanes past the kernel's ceilings) raises, naming the later slice of the
+port that brings it.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.lane_replay import (MAX_ORACLE_LOOKAHEAD,
+from repro_torch.kernels.lane_replay import (MAX_LANE_STEPS,
+                                             MAX_ORACLE_LOOKAHEAD,
                                              N_FPARAMS, N_IPARAMS,
                                              STAT_FIELDS, lane_replay)
 from repro_torch.traces.trace import ROOT_PAGES
@@ -69,6 +71,9 @@ _FAMILY_MAX_ACCESSES = {"demand": MAX_LANE_ACCESSES,
                         "learned": MAX_LANE_ACCESSES,
                         "oracle": MAX_LANE_ACCESSES}
 
+_IMAX = 2 ** 31 - 1
+
+
 def lane_family(pf: Prefetcher) -> Optional[str]:
     """Lane-family bucket of a prefetcher, or None when unpackable (exact
     type: subclasses are unpackable, as in the reference).  Oracle lanes
@@ -88,10 +93,36 @@ def _bucket(n: int, floor: int) -> int:
 
 
 def _lane_shape(request: ReplayRequest) -> Tuple[str, str, int, int]:
-    """(family, eviction policy, length, span) of one request's lane."""
+    """(group, eviction policy, length, span) of one request's lane.  The
+    group is the lane family, marked ``+steps`` for a step-clock lane and
+    ``+quotas`` for a quota lane, so the packer keeps K1's variants in
+    batches of their own."""
     lo, hi = dense_bounds(request.trace, request.prefetcher)
-    return (lane_family(request.prefetcher) or "unpackable",
-            request.config.eviction, len(request.trace.pages), hi - lo)
+    group = lane_family(request.prefetcher) or "unpackable"
+    if request.step_bounds is not None:
+        group += "+steps"
+    tenancy = resolve_tenancy(request.trace, request.config)
+    if tenancy is not None and tenancy.split:
+        group += "+quotas"
+    return group, request.config.eviction, len(request.trace.pages), hi - lo
+
+
+def _step_bounds_reason(request: ReplayRequest) -> Optional[str]:
+    """Why K1 cannot capture ``request``'s step clocks, or None."""
+    sb = np.asarray(request.step_bounds)
+    if (sb.ndim != 1 or sb.size == 0 or not np.issubdtype(sb.dtype,
+                                                          np.integer)):
+        return (f"step_bounds must be a non-empty 1-D integer array, got "
+                f"{sb.dtype} {sb.shape}")
+    if (np.any(np.diff(sb) < 0) or sb[0] < 0
+            or sb[-1] > len(request.trace.pages)):
+        return ("step_bounds must be non-decreasing end indices <= "
+                "n_accesses")
+    if sb.size > MAX_LANE_STEPS:
+        return (f"{sb.size} step windows outside 1..{MAX_LANE_STEPS} (K1's "
+                "per-lane window clocks); more windows need the NumPy "
+                "chunked engine, a later slice of the port")
+    return None
 
 
 def decline_reason(request: ReplayRequest) -> Optional[str]:
@@ -108,12 +139,17 @@ def decline_reason(request: ReplayRequest) -> Optional[str]:
     if request.record_timeline:
         return "per-transfer timelines are a later slice of the port"
     if request.step_bounds is not None:
-        return ("step-clock capture is a later slice of the port (the "
-                "serve scenarios)")
-    tenancy = resolve_tenancy(request.trace, request.config)
-    if tenancy is not None and tenancy.split:
-        return ("per-tenant quotas are a later slice of the port (the mt "
-                "scenarios)")
+        reason = _step_bounds_reason(request)
+        if reason is not None:
+            return reason
+    try:
+        resolve_tenancy(request.trace, request.config)
+    except ValueError as e:
+        return f"invalid tenancy: {e}"
+    cap = request.config.device_pages
+    if cap is not None and not 0 <= cap <= _IMAX:
+        return (f"device_pages={cap} outside K1's int32 parameter block "
+                f"(0..{_IMAX})")
     n = len(request.trace.pages)
     if n == 0 or n > _FAMILY_MAX_ACCESSES[kind]:
         return (f"trace length {n} outside 1..{_FAMILY_MAX_ACCESSES[kind]} "
@@ -149,6 +185,11 @@ class LaneBatch:
     ft: Optional[np.ndarray] = None
     pos: Optional[np.ndarray] = None
     lookahead: int = 0
+    #: step-clock batches: the window id of every access
+    sids: Optional[np.ndarray] = None
+    steps_len: int = 0
+    #: a lane of the batch has per-tenant quotas
+    quotas: bool = False
 
     def kernel_args(self, device) -> Dict:
         """Keyword arguments of :func:`lane_replay` on ``device``."""
@@ -160,7 +201,9 @@ class LaneBatch:
                     fparams=t(self.fparams), iparams=t(self.iparams),
                     span=self.span, buf_len=self.buf_len,
                     family=self.family, policy=self.policy, ft=t(self.ft),
-                    pos=t(self.pos), lookahead=self.lookahead)
+                    pos=t(self.pos), lookahead=self.lookahead,
+                    sids=t(self.sids), steps_len=self.steps_len,
+                    quotas=self.quotas)
 
 
 class CudaReplayBackend(ReplayBackend):
@@ -235,13 +278,20 @@ class CudaReplayBackend(ReplayBackend):
         span = _bucket(max(s for _, _, _, s in shapes), ROOT_PAGES)
         buf_len = max(int(r.config.mshr_entries) for r in requests) + 1
         n_lanes = _bucket(lanes, 1)
+        step_sizes = [0 if r.step_bounds is None
+                      else int(np.asarray(r.step_bounds).size)
+                      for r in requests]
+        steps_len = _bucket(max(step_sizes), 64) if any(step_sizes) else 0
+        tenancies = [resolve_tenancy(r.trace, r.config) for r in requests]
 
         batch = LaneBatch(
             family=kind, policy=policies.pop(),
             pages=np.zeros((n_lanes, t_max), dtype=np.int32),
             fparams=np.zeros((n_lanes, N_FPARAMS), dtype=np.float64),
             iparams=np.full((n_lanes, N_IPARAMS), -1, dtype=np.int32),
-            span=span, buf_len=buf_len, lookahead=lookahead)
+            span=span, buf_len=buf_len, lookahead=lookahead,
+            steps_len=steps_len,
+            quotas=any(tn is not None and tn.split for tn in tenancies))
         iparams = batch.iparams
         iparams[:, 0] = 0                       # padding lanes replay nothing
         iparams[:, 6] = np.iinfo(np.int32).max  # single-tenant boundary
@@ -253,6 +303,8 @@ class CudaReplayBackend(ReplayBackend):
                                  for r in requests), 64) + lookahead
             batch.ft = np.full((n_lanes, ft_len), span, dtype=np.int32)
             batch.pos = np.zeros((n_lanes, t_max), dtype=np.int32)
+        if steps_len:
+            batch.sids = np.zeros((n_lanes, t_max), dtype=np.int32)
         for lane, req in enumerate(requests):
             trace, cfg, pf = req.trace, req.config, req.prefetcher
             pf.reset()
@@ -275,11 +327,20 @@ class CudaReplayBackend(ReplayBackend):
             # hash the absolute page id, identical across backends
             iparams[lane, 5] = np.array(lo & 0xFFFFFFFF,
                                         dtype=np.uint32).astype(np.int32)
-            tn = resolve_tenancy(trace, cfg)
+            tn = tenancies[lane]
             if tn is not None:
                 # dense boundary (may fall outside [0, span) when the slice
                 # touches one tenant only: the compares stay correct)
                 iparams[lane, 6] = int(tn.boundary) - lo
+                if tn.split:
+                    iparams[lane, 7:9] = tn.quotas
+            if req.step_bounds is not None:
+                sb = np.asarray(req.step_bounds, dtype=np.int64)
+                # window id per access; accesses past the last bound go to
+                # the trash slot ``steps_len``
+                sid = np.searchsorted(sb, np.arange(n), side="right")
+                batch.sids[lane, :n] = np.where(sid >= sb.size, steps_len,
+                                                sid)
             if kind == "learned":
                 pr = np.asarray(pf.predicted_pages, dtype=np.int64)[:n]
                 batch.preds[lane, :n] = np.where(pr >= 0, pr - lo, -1)
@@ -297,7 +358,12 @@ class CudaReplayBackend(ReplayBackend):
                       ) -> List[UVMStats]:
         """Replay one homogeneous lane batch: pack, launch, unpack."""
         batch = self.pack_batch(requests)
-        raw = lane_replay(**batch.kernel_args(self.device)).cpu().numpy()
+        raw = lane_replay(**batch.kernel_args(self.device))
+        raw_steps = None
+        if batch.steps_len:
+            raw, raw_steps = raw
+            raw_steps = raw_steps.cpu().numpy()
+        raw = raw.cpu().numpy()
         out = []
         for lane, req in enumerate(requests):
             row = raw[lane]
@@ -318,5 +384,23 @@ class CudaReplayBackend(ReplayBackend):
                 stats.tenant_hits = (th0, stats.hits - th0)
                 stats.tenant_accesses = _tenant_accesses(req.trace.pages,
                                                          tenancy)
+            if req.step_bounds is not None:
+                stats.step_clocks = _fill_step_clocks(
+                    np.asarray(req.step_bounds, dtype=np.int64),
+                    raw_steps[lane])
             out.append(stats)
         return out
+
+
+def _fill_step_clocks(bounds: np.ndarray, lane_steps: np.ndarray
+                     ) -> np.ndarray:
+    """K1's per-window clocks -> ``UVMStats.step_clocks``.  K1 writes only
+    the windows that own an access, so an empty window (a repeated bound)
+    takes the clock of the window before it, and leading empty windows end
+    at clock 0.0: the legacy engine's recording semantics."""
+    n_steps = bounds.size
+    vals = np.asarray(lane_steps[:n_steps], dtype=np.float64)
+    sizes = np.diff(np.concatenate([[0], bounds]))
+    idx = np.where(sizes > 0, np.arange(n_steps), -1)
+    idx = np.maximum.accumulate(idx)
+    return np.where(idx >= 0, vals[np.maximum(idx, 0)], 0.0)

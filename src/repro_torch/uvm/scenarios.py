@@ -11,8 +11,8 @@ Built-ins (see each ``description``): ``oversub-full`` (11 paper benchmarks
 x capacity ratios 1.5/1.0/0.75/0.5 x lru/random/hotcold x the five
 prefetchers, 660 cells), ``oversub-smoke``, ``serve-full``/``serve-smoke``,
 ``mt-full``/``mt-smoke``, ``chaos-smoke`` and ``transformer-smoke``.  The
-serve, multi-tenant and adaptive-eviction scenarios register and expand
-here, but their cells need later slices of the port: when run,
+adaptive-eviction scenario (``transformer-smoke``) registers and expands
+here, but its cells need a later slice of the port: when run,
 ``repro_torch.uvm.sweep.check_cell`` raises with the reason.
 
 Usage::
@@ -29,30 +29,13 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.families import MODEL_FAMILIES
+from repro_torch.offload.serve_trace import is_serve_bench
 from repro_torch.uvm.eviction import EVICTION_POLICIES
 from repro_torch.uvm.sweep import PREFETCHERS, SweepCell
 
 #: the eviction pseudo-policy that is resolved per cell at prepare time;
 #: the port names it and refuses to run it (a later slice)
 ADAPTIVE_POLICY = "adaptive"
-
-#: the serve workloads of the serving scenarios; a serve bench is one of
-#: these, optionally with an ``@r<rate>`` request-rate suffix
-SERVE_WORKLOADS = ("ServeDecode", "ServeTenantMix", "ServeBursty")
-
-
-def is_serve_bench(name: str) -> bool:
-    """True when ``name`` names a serve workload, including
-    ``Base@r<rate>`` rate variants."""
-    base, sep, suffix = name.partition("@")
-    if base not in SERVE_WORKLOADS:
-        return False
-    if not sep:
-        return True
-    try:
-        return suffix.startswith("r") and float(suffix[1:]) > 0
-    except ValueError:
-        return False
 
 #: the paper's full benchmark suite (Table 10) — kept in sync with
 #: ``repro_torch.traces.generators.BENCHMARKS`` by :meth:`Scenario.validate`
@@ -110,7 +93,7 @@ class Scenario:
                 f"scenario {self.name!r}: unknown benches {bad}; choose "
                 f"from {sorted(BENCHMARKS)}, multi-tenant pairs like "
                 "'ATAX+Pathfinder', or serve workloads (see "
-                "SERVE_WORKLOADS, rate variants "
+                "repro_torch.offload.serve_trace.SERVE_WORKLOADS, rate variants "
                 "like 'ServeBursty@r128' accepted)")
         if not self.capacity_splits:
             raise ValueError(

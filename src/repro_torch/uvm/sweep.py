@@ -5,11 +5,21 @@ A slim port of the reference ``repro.uvm.sweep``: the same cells, grid
 expansion, trace windows, learned-predictor training through the prediction
 cache, lane batching, and result rows with the SWEEP_VERSION 9 columns.
 The port accepts all five prefetchers (``none``, ``block``, ``tree``,
-``learned``, ``oracle``) on the benchmark traces under the ``lru``,
-``random`` and ``hotcold`` eviction policies, and the named scenarios of
-``repro_torch.uvm.scenarios``; it raises on anything else.  The reference's
-lease pool, resume, serve, multi-tenant and adaptive paths are later
+``learned``, ``oracle``) under the ``lru``, ``random`` and ``hotcold``
+eviction policies on the benchmark traces, the serve traces
+(``repro_torch.offload.serve_trace``: rows with decode-latency and TTFT
+percentiles from K1's step clocks) and the two-tenant interleaved pairs
+(``repro_torch.traces.interleave``: shared capacity or hard quotas, rows
+with per-tenant hit rates and interference slowdowns), and the named
+scenarios of ``repro_torch.uvm.scenarios``; it raises on anything else.
+The reference's lease pool, resume and the adaptive policy are later
 slices.
+
+Two departures from the reference, both deliberate: a row that arrives
+without the step clocks it needs raises (the reference re-replays it on
+its NumPy engine), and the tenants' solo replays behind the slowdown
+columns run as K1 lanes in the grid's own lane batches (the reference
+replays them one at a time on its NumPy engine).
 
 Programmatic use::
 
@@ -24,10 +34,13 @@ CLI::
         --prefetchers none,tree,learned --device-fracs 0.5 --out results/
     PYTHONPATH=src python -m repro_torch.uvm.sweep --scenario oversub-full \\
         --out results/oversub
+    PYTHONPATH=src python -m repro_torch.uvm.sweep --scenario serve-smoke \\
+        --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
 import dataclasses
 import functools
@@ -132,23 +145,20 @@ def parse_capacity_split(split: Optional[str]
 
 
 def check_cell(cell: SweepCell) -> None:
-    """Raise on a cell the port cannot run yet, naming the later slice."""
+    """Raise on a cell the port cannot run (yet), naming the later slice."""
+    from repro_torch.offload.serve_trace import is_serve_bench
     from repro_torch.traces.generators import BENCHMARKS
     from repro_torch.traces.interleave import is_mt_bench
-    from repro_torch.uvm.scenarios import ADAPTIVE_POLICY, is_serve_bench
+    from repro_torch.uvm.scenarios import ADAPTIVE_POLICY
+    mt = is_mt_bench(cell.bench)
     later = None
-    if is_serve_bench(cell.bench):
-        later = (f"serve bench {cell.bench!r}: serve scenarios with step "
-                 "clocks are a later slice of the port")
-    elif is_mt_bench(cell.bench):
-        later = (f"multi-tenant bench {cell.bench!r}: mt quotas and the "
-                 "per-tenant rows are a later slice of the port")
-    elif cell.capacity_split is not None:
-        later = (f"capacity splits ({cell.capacity_split!r}) are a later "
-                 "slice of the port (the mt scenarios)")
-    elif cell.bench not in BENCHMARKS:
+    if not (mt or is_serve_bench(cell.bench) or cell.bench in BENCHMARKS):
         later = (f"unknown bench {cell.bench!r}; the port runs "
-                 f"{','.join(sorted(BENCHMARKS))}")
+                 f"{','.join(sorted(BENCHMARKS))}, serve workloads and "
+                 "multi-tenant pairs like 'ATAX+Pathfinder'")
+    elif parse_capacity_split(cell.capacity_split) is not None and not mt:
+        later = (f"capacity splits ({cell.capacity_split!r}) need a "
+                 "multi-tenant bench like 'ATAX+Pathfinder'")
     elif cell.eviction == ADAPTIVE_POLICY:
         later = (f"eviction {cell.eviction!r}: the adaptive policy is a "
                  "later slice of the port")
@@ -186,12 +196,22 @@ def expand_grid(benches: Sequence[str], prefetchers: Sequence[str], *,
 @functools.lru_cache(maxsize=32)
 def load_trace(bench: str, scale: float = 1.0, seed: int = 0,
                window: Optional[float] = 0.6) -> Trace:
-    """Generate one benchmark trace and cut the leading evaluation window
-    (memoized in-process; no disk cache)."""
-    from repro_torch.traces import GPUModel, generate_benchmark
-    from repro_torch.traces.gpu_model import GPUModelConfig
-    spec = generate_benchmark(bench, scale=scale, seed=seed)
-    trace = GPUModel(GPUModelConfig(seed=seed)).run(spec)
+    """Generate one trace and cut the leading evaluation window (memoized
+    in-process; no disk cache): a serve workload's trace (never windowed:
+    its decode-step bounds cover every access), a multi-tenant pair's
+    interleaved trace, or a benchmark's GMMU trace."""
+    from repro_torch.offload.serve_trace import (build_serve_trace,
+                                                 is_serve_bench)
+    from repro_torch.traces.interleave import build_mt_trace, is_mt_bench
+    if is_serve_bench(bench):
+        return build_serve_trace(bench, scale=scale, seed=seed)
+    if is_mt_bench(bench):
+        trace = build_mt_trace(bench, scale=scale, seed=seed)
+    else:
+        from repro_torch.traces import GPUModel, generate_benchmark
+        from repro_torch.traces.gpu_model import GPUModelConfig
+        spec = generate_benchmark(bench, scale=scale, seed=seed)
+        trace = GPUModel(GPUModelConfig(seed=seed)).run(spec)
     if window is not None:
         trace, _ = trace.split(window)
     return trace
@@ -228,8 +248,19 @@ def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
     device_pages = cell.device_pages
     if device_pages is None and cell.device_frac is not None:
         device_pages = int(trace.working_set_pages * cell.device_frac)
+    fracs = parse_capacity_split(cell.capacity_split)
+    tenant_pages = None
+    if fracs is not None:
+        if device_pages is None:
+            raise ValueError(
+                f"cell {cell.bench}/{cell.prefetcher}: capacity_split="
+                f"{cell.capacity_split!r} needs a device capacity "
+                "(device_pages or device_frac)")
+        tenant_pages = (int(fracs[0] * device_pages),
+                        int(fracs[1] * device_pages))
     config = UVMConfig(prediction_overhead_us=cell.prediction_us,
-                       device_pages=device_pages, eviction=cell.eviction)
+                       device_pages=device_pages, eviction=cell.eviction,
+                       tenant_pages=tenant_pages)
     prefetcher = make_prefetcher(cell, trace, config, cache_dir, device,
                                  timings)
     return trace, config, prefetcher, device_pages
@@ -271,40 +302,233 @@ def _finish_row(cell: SweepCell, stats: UVMStats,
     return row
 
 
+def _serve_step_bounds(trace: Trace) -> Optional[np.ndarray]:
+    """Decode-step bounds of a serve trace, None for other traces."""
+    if trace.meta and "serve" in trace.meta:
+        from repro_torch.offload.serve_trace import trace_step_bounds
+        return trace_step_bounds(trace)
+    return None
+
+
+def _mt_step_bounds(trace: Trace) -> Optional[np.ndarray]:
+    """Step bounds at each tenant's *last access* of an interleaved trace
+    (None for single-tenant traces): the replay's clocks there are the
+    per-tenant completion cycles behind the interference slowdowns."""
+    from repro_torch.traces.interleave import tenant_last_index
+    last = tenant_last_index(trace)
+    if last is None:
+        return None
+    return np.asarray(sorted({i + 1 for i in last if i >= 0}),
+                      dtype=np.int64)
+
+
+def _step_bounds(trace: Trace) -> Optional[np.ndarray]:
+    """The step bounds a cell's replay clocks: serve decode steps,
+    multi-tenant completion bounds, or None."""
+    bounds = _serve_step_bounds(trace)
+    return bounds if bounds is not None else _mt_step_bounds(trace)
+
+
+def _step_clocks(cell: SweepCell, trace: Trace, config: UVMConfig,
+                 stats: UVMStats, bounds: np.ndarray,
+                 cache_dir: Optional[str], device: str) -> np.ndarray:
+    """The step clocks the row's own replay captured.  A row without them
+    raises: nothing re-replays it quietly.  ``REPRO_SERVE_CHECK=1`` asks for
+    the differential check: the cell re-replays on the port's legacy engine,
+    and its counters and clocks must equal the row's bit for bit."""
+    what = (f"{stats.backend} row {cell.bench}/{cell.prefetcher}/"
+            f"{cell.eviction}")
+    clocks = stats.step_clocks
+    if clocks is None or len(clocks) != len(bounds):
+        raise ValueError(f"{what} arrived without its {len(bounds)} step "
+                         "clocks")
+    if os.environ.get("REPRO_SERVE_CHECK", "0") == "1":
+        from repro_torch.uvm.simulator import UVMSimulator
+        pf = make_prefetcher(cell, trace, config, cache_dir, device)
+        check = UVMSimulator(config).run(trace, pf, step_bounds=bounds)
+        for f in ("hits", "late", "faults", "prefetch_issued",
+                  "prefetch_used", "pages_migrated", "pages_evicted"):
+            if getattr(check, f) != getattr(stats, f):
+                raise AssertionError(
+                    f"{what}: {f} {getattr(stats, f)} != legacy "
+                    f"{getattr(check, f)}")
+        if not np.array_equal(np.asarray(clocks), check.step_clocks):
+            raise AssertionError(f"{what}: step clocks diverge from the "
+                                 "legacy engine's")
+    return np.asarray(clocks)
+
+
+def _serve_latency_row(cell: SweepCell, trace: Trace, config: UVMConfig,
+                       stats: UVMStats, cache_dir: Optional[str],
+                       device: str) -> Dict:
+    """The serving SLO columns of one serve row: percentile math over the
+    step clocks K1 captured (``slo_source="kernel"``)."""
+    from repro_torch.offload.serve_trace import (serve_latency_columns,
+                                                 trace_step_bounds)
+    clocks = _step_clocks(cell, trace, config, stats,
+                          trace_step_bounds(trace), cache_dir, device)
+    row = serve_latency_columns(trace, clocks, config)
+    row["slo_source"] = "kernel"
+    return row
+
+
+def _solo_capacity(config: UVMConfig, device_pages: Optional[int],
+                   tenant: int) -> Optional[int]:
+    """A tenant's solo capacity: its quota on split rows, the whole device
+    on shared rows."""
+    return (config.tenant_pages[tenant] if config.tenant_pages
+            else device_pages)
+
+
+def _solo_key(cell: SweepCell, tenant: int, capacity: Optional[int],
+              eviction: str) -> Tuple:
+    """Identity of one tenant's solo replay: every cell of a grid that
+    shares it reuses one replay."""
+    return (cell.bench, cell.scale, cell.seed, cell.window, tenant, capacity,
+            cell.prefetcher, eviction, cell.prediction_us, cell.model_family,
+            cell.service_steps)
+
+
+def _solo_requests(cells: Sequence[SweepCell], prepared: Sequence[Tuple],
+                   timings: Sequence[Dict[str, float]],
+                   cache_dir: Optional[str], device: str
+                   ) -> Tuple[Dict[Tuple, ReplayRequest], List[List[Tuple]]]:
+    """The distinct solo replays behind the grid's interference slowdowns,
+    and the solo keys each cell uses: each tenant's accesses extracted from
+    the interleaved trace (``mt_component_trace``) and replayed alone at its
+    solo capacity.  A learned solo lane trains on the solo trace through
+    the prediction cache; the cell that first needs it pays that training
+    in its ``timings``."""
+    from repro_torch.traces.interleave import (mt_component_trace,
+                                               tenant_last_index)
+    solos: Dict[Tuple, ReplayRequest] = {}
+    uses: List[List[Tuple]] = []
+    components: Dict[Tuple[int, int], Trace] = {}
+    for cell, (trace, config, _, device_pages), tm in zip(cells, prepared,
+                                                          timings):
+        uses.append([])
+        last = tenant_last_index(trace)
+        if last is None:
+            continue
+        for t, li in enumerate(last):
+            capacity = _solo_capacity(config, device_pages, t)
+            key = _solo_key(cell, t, capacity, config.eviction)
+            if li >= 0:
+                uses[-1].append(key)
+            if li < 0 or key in solos:
+                continue
+            solo = components.get((id(trace), t))
+            if solo is None:
+                solo = components[(id(trace), t)] = mt_component_trace(
+                    trace, t)
+            cfg = UVMConfig(prediction_overhead_us=cell.prediction_us,
+                            device_pages=capacity, eviction=config.eviction)
+            solo_tm: Dict[str, float] = {}
+            pf = make_prefetcher(cell, solo, cfg, cache_dir, device, solo_tm)
+            for k, v in solo_tm.items():
+                tm[k] = tm.get(k, 0.0) + v
+            solos[key] = ReplayRequest(solo, pf, cfg)
+    return solos, uses
+
+
+def _mt_row(cell: SweepCell, trace: Trace, config: UVMConfig,
+            stats: UVMStats, device_pages: Optional[int],
+            solo_cycles: Dict[Tuple, int], cache_dir: Optional[str],
+            device: str) -> Dict:
+    """The multi-tenant columns of one interleaved-trace row: tenant count,
+    the capacity split that ran, per-tenant hit rates, and the interference
+    slowdown (per-tenant completion cycles in the mix over the tenant's
+    solo replay)."""
+    from repro_torch.traces.interleave import N_TENANTS, tenant_last_index
+
+    row: Dict = {"tenants": N_TENANTS,
+                 "capacity_split": cell.capacity_split or "shared"}
+    th, ta = stats.tenant_hits, stats.tenant_accesses
+    for t in range(N_TENANTS):
+        row[f"hit_rate_t{t}"] = (th[t] / ta[t]) if ta and ta[t] else None
+    last = tenant_last_index(trace)
+    bounds = _mt_step_bounds(trace)
+    clocks = _step_clocks(cell, trace, config, stats, bounds, cache_dir,
+                          device)
+    cyc_at = {int(b): float(c) for b, c in zip(bounds, clocks)}
+    slowdowns = []
+    for t in range(N_TENANTS):
+        if last[t] < 0:
+            row[f"slowdown_t{t}"] = None
+            continue
+        solo = solo_cycles[_solo_key(
+            cell, t, _solo_capacity(config, device_pages, t),
+            config.eviction)]
+        sd = cyc_at[last[t] + 1] / solo if solo > 0 else None
+        row[f"slowdown_t{t}"] = sd
+        if sd is not None:
+            slowdowns.append(sd)
+    row["interference_slowdown"] = max(slowdowns) if slowdowns else None
+    return row
+
+
 def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
               cache_dir: Optional[str] = None, device: str = "cuda",
               verbose: bool = False) -> List[Dict]:
     """Run a grid of cells; returns rows in the order of ``cells``.
 
     Cells are prepared in order (learned cells train or hit the prediction
-    cache), then replayed as homogeneous K1 lane batches.  Row ``seconds``
-    is the cell's share of its batch's replay time; learned rows also carry
-    ``train_seconds`` and ``predict_seconds`` (0.0 where the predictions
-    came from the cache)."""
+    cache), the tenants' solo replays of multi-tenant cells join them, and
+    everything replays as homogeneous K1 lane batches; serve and
+    multi-tenant cells carry their step bounds into K1.  Row ``seconds`` is
+    the cell's share of its batch's replay time, and on a multi-tenant row
+    also its share of its solo replays' time (a solo replay's share split
+    evenly among the rows that use it), so the rows' seconds add up to the
+    sweep's replay time.  Learned rows also carry ``train_seconds`` and
+    ``predict_seconds`` (0.0 where the predictions came from the cache; a
+    multi-tenant row includes the training of the solo lanes it was the
+    first to need)."""
     for cell in cells:
         check_cell(cell)
     if cache_dir is None and out_dir is not None:
         cache_dir = os.path.join(out_dir, "cache")
-    prepared, extra = [], []
+    prepared, timings = [], []
     for cell in cells:
-        timings: Dict[str, float] = {}
+        tm: Dict[str, float] = {}
         prepared.append(prepare_cell(cell, cache_dir=cache_dir,
-                                     device=device, timings=timings))
-        extra.append({"train_seconds": timings.get("train_s", 0.0),
-                      "predict_seconds": timings.get("predict_s", 0.0)})
-    requests = [ReplayRequest(tr, pf, cfg) for tr, cfg, pf, _ in prepared]
+                                     device=device, timings=tm))
+        timings.append(tm)
+    requests = [ReplayRequest(tr, pf, cfg, step_bounds=_step_bounds(tr))
+                for tr, cfg, pf, _ in prepared]
+    solos, uses = _solo_requests(cells, prepared, timings, cache_dir, device)
+    solo_index = {}
+    for key, req in solos.items():
+        solo_index[key] = len(requests)
+        requests.append(req)
+    from repro_torch.traces.interleave import mt_meta
     backend = get_backend("cuda", device)
-    rows: List[Optional[Dict]] = [None] * len(cells)
+    stats: List[Optional[UVMStats]] = [None] * len(requests)
+    seconds = [0.0] * len(requests)
     for batch in backend.pack_lanes(requests):
         if verbose:
             print(f"[sweep] cuda lanes: replaying {len(batch)} cells in one "
                   "batch", flush=True)
         t0 = time.perf_counter()
-        stats = backend.replay([requests[i] for i in batch])
+        got = backend.replay([requests[i] for i in batch])
         per_cell = (time.perf_counter() - t0) / len(batch)
-        for i, st in zip(batch, stats):
-            rows[i] = _finish_row(cells[i], st, prepared[i][3], per_cell)
-            rows[i].update(extra[i])
+        for i, st in zip(batch, got):
+            stats[i], seconds[i] = st, per_cell
+    solo_cycles = {key: int(stats[i].cycles) for key, i in solo_index.items()}
+    users = collections.Counter(key for keys in uses for key in keys)
+    rows: List[Dict] = []
+    for i, (cell, (trace, config, _, device_pages)) in enumerate(
+            zip(cells, prepared)):
+        row = _finish_row(cell, stats[i], device_pages, seconds[i] + sum(
+            seconds[solo_index[key]] / users[key] for key in uses[i]))
+        row.update(train_seconds=timings[i].get("train_s", 0.0),
+                   predict_seconds=timings[i].get("predict_s", 0.0))
+        if _serve_step_bounds(trace) is not None:
+            row.update(_serve_latency_row(cell, trace, config, stats[i],
+                                          cache_dir, device))
+        elif mt_meta(trace) is not None:
+            row.update(_mt_row(cell, trace, config, stats[i], device_pages,
+                               solo_cycles, cache_dir, device))
+        rows.append(row)
     if out_dir:
         write_results(rows, out_dir)
     return rows
@@ -323,7 +547,10 @@ def write_results(rows: List[Dict], out_dir: str) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    from repro_torch.offload.serve_trace import (SERVE_WORKLOADS,
+                                                 is_serve_bench)
     from repro_torch.traces.generators import BENCHMARKS
+    from repro_torch.traces.interleave import is_mt_bench
     ap = argparse.ArgumentParser(
         description="Batched UVM sweep on the port (K1 lane batches)")
     ap.add_argument("--benches", default="ATAX,BICG,Pathfinder,Hotspot")
@@ -361,10 +588,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"[sweep] scenario {args.scenario!r}: {len(cells)} cells")
     else:
         benches = args.benches.split(",")
-        bad = [b for b in benches if b not in BENCHMARKS]
+        bad = [b for b in benches if b not in BENCHMARKS
+               and not is_serve_bench(b) and not is_mt_bench(b)]
         if bad:
             ap.error(f"unknown benchmark(s) {','.join(bad)}; "
-                     f"choose from {','.join(sorted(BENCHMARKS))}")
+                     f"choose from {','.join(sorted(BENCHMARKS))}, "
+                     "multi-tenant pairs like ATAX+Pathfinder, or serve "
+                     f"workloads {','.join(sorted(SERVE_WORKLOADS))} "
+                     "(rate variants like ServeBursty@r128 accepted)")
         pfs = args.prefetchers.split(",")
         bad = [p for p in pfs if p not in PREFETCHERS]
         if bad:

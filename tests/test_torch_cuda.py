@@ -1,7 +1,8 @@
-"""The port's kernels on the card: K1 replays the non-quota golden cells of
-every lane family and eviction policy exactly and matches its plain version,
-the paper's Table 10/11 tree rows equal the legacy engine's, K2 matches its
-plain version, and the predictor's inference goes through K2.  Every test
+"""The port's kernels on the card: K1 replays the 77 golden cells of every
+lane family and eviction policy exactly (the hard-quota cells included) and
+matches its plain version, its step-clock and quota lanes equal the legacy
+engine, the paper's Table 10/11 tree rows equal the legacy engine's, K2
+matches its plain version, and the predictor's inference goes through K2.  Every test
 here needs a CUDA device and nvcc (a CUDA kernel has no CPU mode) and skips
 without one.  The module imports neither jax nor the reference package, so
 it runs where only PyTorch is installed:
@@ -25,6 +26,10 @@ from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, lane_replay,
                                              lane_replay_plain)
 from repro_torch.uvm import golden as G
 from repro_torch.uvm import paper_tables, sweep
+from repro_torch.offload.serve_trace import (build_serve_trace,
+                                             trace_step_bounds)
+from repro_torch.traces.interleave import build_mt_trace
+from repro_torch.uvm.backends.cuda_backend import CudaReplayBackend
 from repro_torch.uvm.config import UVMConfig
 from repro_torch.uvm.prefetchers import TreePrefetcher
 from repro_torch.uvm.replay_core import ReplayRequest, get_backend
@@ -44,13 +49,13 @@ def device():
 
 
 def test_k1_replays_the_golden_cells_exactly(device):
-    """The 70 non-quota golden cells: every lane family under lru, random
-    and hotcold, in one backend call (so they pack as a sweep packs)."""
+    """The 77 golden cells: every lane family under lru, random and
+    hotcold, and the hard-quota cells, in one backend call (so they pack as
+    a sweep packs)."""
     with open(FIXTURE) as f:
         golden = json.load(f)["cells"]
-    ids = [c for c in G.golden_cell_ids()
-           if not G.golden_cell(c)[1].tenant_pages]
-    assert len(ids) == 70
+    ids = G.golden_cell_ids()
+    assert len(ids) == 77
     requests = []
     for cell_id in ids:
         trace, cfg, factory = G.golden_cell(cell_id)
@@ -68,6 +73,67 @@ def test_k1_replays_the_golden_cells_exactly(device):
                 cell_id, f)
         if "tenant_hits" in want:
             assert list(st.tenant_hits) == want["tenant_hits"], cell_id
+
+
+#: the golden prefetcher of each lane family
+FAMILY_PREFETCHER = {"demand": "block", "tree": "tree", "learned": "learned",
+                     "oracle": "oracle"}
+
+
+def _variant_lanes(trace, family, policy, bounds=None, quotas=None):
+    """Two lanes of ``trace`` at half and three quarters of its working
+    set (with step ``bounds``; with hard ``quotas`` fractions)."""
+    reqs = []
+    for frac in (0.5, 0.75):
+        cap = int(trace.working_set_pages * frac)
+        tp = None if quotas is None else tuple(int(q * cap) for q in quotas)
+        cfg = UVMConfig(device_pages=cap, eviction=policy, tenant_pages=tp)
+        pf = G.make_prefetcher(FAMILY_PREFETCHER[family], trace, cfg)
+        reqs.append(ReplayRequest(trace, pf, cfg, step_bounds=bounds))
+    return reqs
+
+
+def _k1_equals_plain_and_legacy(device, reqs):
+    backend = CudaReplayBackend(device)
+    batch = backend.pack_batch(reqs)
+    got = lane_replay(**batch.kernel_args(device))
+    cpu = batch.kernel_args("cpu")
+    cpu.pop("buf_len")
+    want = lane_replay_plain(**cpu)
+    if batch.steps_len:
+        assert torch.equal(got[1].cpu(), want[1])
+        got, want = got[0], want[0]
+    assert torch.equal(got.cpu(), want)
+    for req, st in zip(reqs, backend.replay(reqs)):
+        ref = UVMSimulator(req.config).run(
+            req.trace, G.make_prefetcher(
+                FAMILY_PREFETCHER[batch.family], req.trace, req.config),
+            step_bounds=req.step_bounds)
+        assert G.stats_to_dict(st) == G.stats_to_dict(ref)
+        if req.step_bounds is not None:
+            assert np.array_equal(st.step_clocks, ref.step_clocks)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_k1_step_clocks_match_plain_and_legacy(device, family, policy):
+    """Step-clock lanes on ServeBursty@r8 at scale 0.25 (622 of its 762
+    windows are empty): window clocks bit for bit."""
+    trace = build_serve_trace("ServeBursty@r8", scale=0.25)
+    _k1_equals_plain_and_legacy(device, _variant_lanes(
+        trace, family, policy, bounds=trace_step_bounds(trace)))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_k1_quota_lanes_match_plain_and_legacy(device, family, policy):
+    """Quota lanes (0.4/0.4 of the capacity, a 20% spill pool) on the
+    ATAX+Pathfinder interleave at scale 0.25, clocked at each tenant's last
+    access as the sweep clocks them."""
+    trace = build_mt_trace("ATAX+Pathfinder", scale=0.25)
+    _k1_equals_plain_and_legacy(device, _variant_lanes(
+        trace, family, policy, bounds=sweep._mt_step_bounds(trace),
+        quotas=(0.4, 0.4)))
 
 
 @pytest.mark.parametrize("family", FAMILIES)

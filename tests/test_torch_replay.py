@@ -5,8 +5,8 @@ with exact integer counters and cycles/pcie_bytes within 1e-6 relative of
 ``tests/golden/uvm_golden.json``; random lane batches of every family and
 policy match the reference's legacy engine; requests K1 cannot replay are
 refused, never degraded.  The other golden cells are in
-``test_torch_replay_{tree,oracle,policies}.py``, which share the helpers
-here."""
+``test_torch_replay_{tree,oracle,policies}.py`` and ``test_torch_mt.py``
+(the hard-quota cells), which share the helpers here."""
 import dataclasses
 import json
 import os
@@ -20,7 +20,7 @@ import torch
 from repro.traces.trace import make_records
 from repro.uvm import golden as R
 from repro.uvm.simulator import UVMSimulator as RefSimulator
-from repro_torch.kernels.lane_replay import lane_replay
+from repro_torch.kernels.lane_replay import MAX_LANE_STEPS, lane_replay
 from repro_torch.traces.trace import Trace
 from repro_torch.uvm import golden as G
 from repro_torch.uvm import prefetchers as P
@@ -180,8 +180,9 @@ def _one_lane(prefetcher, n=64, **cfg):
 
 
 @pytest.mark.parametrize("make,kw,why", [
-    (lambda: _one_lane(P.NoPrefetcher()), {"step_bounds": np.array([32, 64])},
-     "step-clock capture is a later slice"),
+    (lambda: _one_lane(P.NoPrefetcher()),
+     {"step_bounds": np.ones(MAX_LANE_STEPS + 1, dtype=np.int64)},
+     f"{MAX_LANE_STEPS + 1} step windows outside 1..{MAX_LANE_STEPS}"),
     (lambda: _one_lane(P.BlockPrefetcher()), {"record_timeline": True},
      "per-transfer timelines are a later slice"),
     (lambda: _one_lane(P.OraclePrefetcher(np.arange(64), lookahead=513)), {},
@@ -215,10 +216,25 @@ def test_random_key_guard_raises():
 
 
 def test_quota_tenancy_is_refused():
+    """Quotas K1 cannot honour are refused with the tenancy's reason (more
+    quota than capacity, quotas on a single-tenant trace), never degraded;
+    the golden hard-quota cells are in K1 (``test_torch_mt.py`` replays
+    them)."""
     cell = next(c for c in G.golden_cell_ids() if c.startswith("mt-quota"))
     trace, config, _ = G.golden_cell(cell)
-    req = ReplayRequest(trace, P.NoPrefetcher(), config)
-    assert "quotas are a later slice" in decline_reason(req)
+    assert decline_reason(ReplayRequest(trace, P.NoPrefetcher(),
+                                        config)) is None
+    over = dataclasses.replace(config, tenant_pages=(config.device_pages,
+                                                     1))
+    single = _one_lane(P.NoPrefetcher(), device_pages=100,
+                       tenant_pages=(40, 40))
+    backend = CudaReplayBackend(device="cpu")
+    for req, why in ((ReplayRequest(trace, P.NoPrefetcher(), over),
+                      "exceed device_pages"), (single, "not multi-tenant")):
+        assert "invalid tenancy" in decline_reason(req)
+        assert why in decline_reason(req)
+        with pytest.raises(ValueError, match=why):
+            backend.replay([req])
 
 
 def test_lane_batches_are_family_homogeneous_and_bounded():

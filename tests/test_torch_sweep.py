@@ -1,8 +1,9 @@
 """The port's sweep entry point and prediction cache: the cells of all five
-prefetchers under the three eviction policies expand, run, equal the legacy
-engine and write rows with the reference's columns; cells the port cannot
-run yet raise, naming the later slice; prediction arrays are keyed apart
-from the JAX package's and stored with a checksum."""
+prefetchers under the three eviction policies, on benchmark, serve and
+multi-tenant traces, expand, run, equal the legacy engine and write rows
+with the reference's columns; cells the port cannot run (yet) raise, naming
+why; prediction arrays are keyed apart from the JAX package's and stored
+with a checksum."""
 import csv
 import os
 import warnings
@@ -42,20 +43,46 @@ def test_expand_grid_order():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"bench": "ServeDecode"}, "serve scenarios with step clocks are a "
-     "later slice"),
+    pytest.param({"bench": "ServeDecode", "window": None}, None,
+                 id="change0-serve scenarios with step clocks are a later "
+                 "slice"),
     ({"prefetcher": "bogus"}, "unknown prefetcher 'bogus'"),
     ({"model_family": "bogus"}, "unknown model family 'bogus'"),
     ({"eviction": "adaptive"}, "eviction 'adaptive'"),
-    ({"bench": "ATAX+Pathfinder"}, "later slice"),
+    pytest.param({"bench": "ATAX+Pathfinder", "capacity_split": "0.5/0.5"},
+                 None, id="change4-later slice"),
     ({"capacity_split": "0.5/0.5"}, "capacity splits"),
     ({"backend": "numpy"}, "backend 'numpy'"),
 ])
 def test_cells_outside_the_slice_raise(change, match):
+    """Cells the port refuses raise, naming why (a quota split needs a
+    multi-tenant bench); serve and multi-tenant cells run, and their rows
+    equal the legacy engine (case ids are kept stable across releases of
+    the port)."""
     cell = sweep.SweepCell(**{"bench": "ATAX", "prefetcher": "none",
-                              **change})
-    with pytest.raises(ValueError, match=match):
-        sweep.run_sweep([cell], device="cpu")
+                              "scale": 0.1, "device_frac": 0.5,
+                              "eviction": "hotcold", **change})
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            sweep.run_sweep([cell], device="cpu")
+        return
+    (row,) = sweep.run_sweep([cell], device="cpu")
+    trace, config, pf, _ = sweep.prepare_cell(cell, device="cpu")
+    want = UVMSimulator(config).run(trace, pf,
+                                    step_bounds=sweep._step_bounds(trace))
+    assert row["backend"] == "cuda"
+    for f in ("hits", "late", "faults", "pages_migrated", "pages_evicted"):
+        assert row[f] == getattr(want, f), f
+    assert row["cycles"] == pytest.approx(want.cycles, rel=1e-6)
+    assert row["pages_evicted"] > 0
+    if cell.capacity_split is None:
+        assert row["slo_source"] == "kernel"
+        assert row["decode_lat_p50_us"] <= row["decode_lat_p99_us"]
+    else:
+        th, ta = want.tenant_hits, want.tenant_accesses
+        assert (row["hit_rate_t0"], row["hit_rate_t1"]) == (
+            th[0] / ta[0], th[1] / ta[1])
+        assert row["interference_slowdown"] >= 1.0
 
 
 def test_demand_sweep_writes_rows(tmp_path):
