@@ -3,8 +3,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
 learned-prefetch sweep, the paper's tree-vs-learned tables, the
-oversubscription matrix, the serving matrix and the multi-tenant matrix on
-the card:
+oversubscription matrix, the serving matrix, the multi-tenant matrix, the
+predictor-family smoke and a full-width Transformer-family sweep on the
+card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -14,11 +15,14 @@ the card:
 3. K1 against ``tests/golden/uvm_golden.json`` and against its plain
    version on whole batches of the 77 golden cells, one batch per kernel
    variant (maximum difference 0), with both timed;
-4. K2 (HLSH attention) against its plain version;
+4. K2 (HLSH attention, float32 and bf16), K3 (int4 matmul) and K4 (flash
+   attention) against their plain versions, at the reference's test shapes
+   and types and at the predictor's shapes;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
-   served on the card, every row replayed by K1; tree and learned rows
-   equal the legacy engine on the same inputs;
+   served on the card (the quantized simplified predictor's weight products
+   on K3), every row replayed by K1; tree and learned rows equal the legacy
+   engine on the same inputs;
 6. the paper's Table 10 and Table 11 (tree vs learned, unlimited memory);
    every tree row equals the legacy engine's;
 7. the ``oversub-full`` scenario (660 cells) through the port's sweep,
@@ -28,9 +32,10 @@ the card:
    family x policy on the five serve traces and ServeBursty@r8 (316 empty
    windows), window clocks bit for bit;
 9. K1 with tenant quotas (and the tenants' completion clocks) against the
-   legacy engine on each multi-tenant pair under the 0.5/0.5 and 0.4/0.4
-   splits, every family x policy; K1 against its plain version on a small
-   step-clock batch and a small quota batch of every family x policy;
+   legacy engine on each multi-tenant pair under the 0.4/0.4 split (with
+   its spill pool), every family x policy; K1 against its plain version on
+   a small step-clock batch and a small quota batch of every family x
+   policy;
 10. the ``serve-full`` scenario (300 cells): every row on cuda with its
     latency percentiles from K1's step clocks; the ServeBursty rows are
     held against the legacy engine;
@@ -38,17 +43,28 @@ the card:
     lanes of the same sweep): per-tenant hit rates and slowdowns; the
     MVT+StreamTriad rows, solo replays included, are held against the
     legacy engine;
-12. kernel times from CUDA events beside the plain versions and a PyTorch
+12. the ``transformer-smoke`` scenario under ``ADAPTIVE_selector.json``
+    (the assertions of ``scripts/ci_check.sh``: 4 rows on cuda, both
+    families, each bench's eviction its selector entry), its replays held
+    against the legacy engine;
+13. the family path: the 11 benchmarks x learned x the reference
+    Transformer family (2 layers, 4 heads, d_model 200, full attention on
+    K4) x {all memory, half the working set} under ``adaptive`` eviction
+    with no selector table, so every half-memory cell probes on K1; each
+    resolved policy equals the legacy engine's probe, cycles included;
+    then top-1, F1 and coverage per bench against the simplified family;
+14. kernel times from CUDA events beside the plain versions and a PyTorch
     yardstick: K1 per kernel variant on the largest batch of each path
     (the step-clock batches also without their capture, and through the
     quota specialisation), K1's per-eviction cost against the scanned
     span, K1 against its plain version on the main path's learned batch and
-    on the tables' tree batch, then the ``kernels`` line and the result
-    line.
+    on the tables' tree batch, K2 (float32 and bf16), K3 and K4 at the
+    predictor's shapes, then the ``kernels`` line and the result line.
 
-Each of the five driven paths (5, 6, 7, 10, 11) zeroes the launch counters
-just before it and reads them just after.  The legacy engine's replays and
-the plain versions run in a pool of worker processes on the host.
+Each of the seven driven paths (5, 6, 7, 10, 11, 12, 13) zeroes the launch
+counters just before it and reads them just after.  The legacy engine's
+replays and the plain versions run in a pool of worker processes on the
+host.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` (``--out`` also writes the rows
 and kernel records as JSON).  Exits non-zero without a result line when no
@@ -93,10 +109,39 @@ MT_CHECK_BENCH = "MVT+StreamTriad"
 HOST_WORKERS = 7
 K1_SOURCE = "src/repro_torch/csrc/lane_replay.cu"
 K2_SOURCE = "src/repro_torch/csrc/hlsh_attention.cu"
+K3_SOURCE = "src/repro_torch/csrc/int4_matmul.cu"
+K4_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 K1_REPLACES = "src/repro/uvm/backends/pallas_backend.py:197"
 K2_REPLACES = "src/repro/kernels/hlsh_attention.py:34"
+K3_REPLACES = "src/repro/kernels/int4_matmul.py:22"
+K4_REPLACES = "src/repro/kernels/flash_attention.py:26"
 GOLDEN = os.path.join(ROOT, "tests", "golden", "uvm_golden.json")
-K2_ATOL = 2e-4                     # the tolerance of tests/test_kernels.py
+SELECTOR = os.path.join(ROOT, "ADAPTIVE_selector.json")
+#: the tolerances of tests/test_kernels.py: K2 and K4 absolute (float32,
+#: bf16; K2's bf16 3e-2), K3 relative to |want| + 1
+K2_ATOL = 2e-4
+K2_BF16_ATOL = 3e-2
+K4_ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
+K3_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the reference's test shapes: K2 (B, N, D), K4 (B, H, Hkv, Sq, Sk, D), K3
+#: (M, K, N)
+K2_REF_SHAPES = ((1, 128, 32), (2, 256, 64), (1, 512, 128))
+K4_REF_SHAPES = ((1, 2, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+                 (1, 8, 1, 128, 384, 128), (1, 4, 4, 256, 128, 32))
+K3_REF_SHAPES = ((128, 128, 256), (128, 256, 256), (256, 128, 512))
+#: the predictor's shapes: the Transformer family's heads at inference
+#: (4096 sequences x 4 heads x 30 tokens x 200 / 4), the quantized
+#: simplified predictor's layer products (4096 x 30 token rows of width 12
+#: and 48) and its classification head at the largest class count and at an
+#: odd one (padded by one zero column)
+K4_PATH_SHAPE = (4096, 4, 4, 30, 30, 50)
+K3_PATH_SHAPES = ((4096 * 30, 12, 12), (4096 * 30, 12, 48),
+                  (4096 * 30, 48, 12), (4096, 12, 20000), (4096, 12, 19999))
+#: the Transformer family's learned cells (phase 13)
+FAMILY = "transformer"
+#: the bench whose quantized simplified inference is timed with and without
+#: K3 (phase 14): an HLSH bench with many windows
+INFER_BENCH = "NW"
 #: published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the
 #: tensor cores
 HBM_BYTES_S = 3.35e12
@@ -246,6 +291,62 @@ def k1_vs_plain(batch):
     return err, got, plain_s
 
 
+def cuda_randn(rng, shape, dtype):
+    """Standard normal draws from the numpy generator ``rng``, on the card
+    in ``dtype``."""
+    import torch
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device="cuda").to(dtype)
+
+
+def k4_against_plain(rng, shape, causal, dtype):
+    """K4 and its plain version on one (B, H, Hkv, Sq, Sk, D) draw: (max
+    abs difference, (q, k, v))."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, h, hkv, sq, sk, d = shape
+    q = cuda_randn(rng, (b, h, sq, d), dtype)
+    k = cuda_randn(rng, (b, hkv, sk, d), dtype)
+    v = cuda_randn(rng, (b, hkv, sk, d), dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    return float((got.float() - want.float()).abs().max()), (q, k, v)
+
+
+def rel_err(got, want) -> float:
+    """The reference's K3 measure: max |got - want| / (|want| + 1)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (want.abs() + 1.0)).max())
+
+
+def k3_against_plain(rng, m, kdim, n, dtype, packer: bool):
+    """K3 and its plain version on one (M, K) x (K, N) draw: random bytes
+    and scale 0.03 as the reference's tests draw them, or (``packer``) a
+    weight packed by ``pack_int4_like_fake_quant`` (an odd N padded by one
+    column), where the plain product must also equal ``x @
+    fake_quant_tensor(w)``.  Returns (relative error, max abs difference,
+    (x, packed, scale))."""
+    import torch
+    from repro_torch.core.quantize import (fake_quant_tensor,
+                                           pack_int4_like_fake_quant)
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+    x = cuda_randn(rng, (m, kdim), dtype)
+    if packer:
+        w = cuda_randn(rng, (kdim, n), torch.float32) * 0.3
+        packed, scale = pack_int4_like_fake_quant(w)
+    else:
+        packed = torch.tensor(rng.integers(0, 256, (kdim, n // 2)),
+                              dtype=torch.uint8, device="cuda")
+        scale = 0.03
+    got = int4_matmul(x, packed, scale)[:, :n]
+    want = int4_matmul_plain(x, packed, scale)[:, :n]
+    err = rel_err(got, want)
+    if packer:
+        err = max(err, rel_err(want, x @ fake_quant_tensor(w).to(dtype)))
+    return err, float((got.float() - want.float()).abs().max()), (
+        x, packed, scale)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -270,13 +371,19 @@ def smoke(args, pool) -> int:
     import numpy as np
     import torch
     from repro_torch.core.features import cluster_trace, delta_convergence
+    from repro_torch.core.service import PredictorService
     from repro_torch.kernels import build
     from repro_torch.kernels import lane_replay as k1
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.hlsh_attention import (hlsh_attention,
                                                     hlsh_attention_plain)
+    from repro_torch.kernels.int4_matmul import (int4_matmul,
+                                                 int4_matmul_plain,
+                                                 unpack_int4)
     from repro_torch.kernels.lane_replay import lane_replay
+    from repro_torch.uvm import adaptive, paper_tables, sweep
     from repro_torch.uvm import golden as G
-    from repro_torch.uvm import paper_tables, sweep
     from repro_torch.offload.serve_trace import (serve_latency_columns,
                                                  trace_step_bounds)
     from repro_torch.traces.interleave import (mt_component_trace,
@@ -312,6 +419,17 @@ def smoke(args, pool) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     backend = get_backend("cuda", device="cuda")
+    counted = {"lane_replay": lane_replay, "hlsh_attention": hlsh_attention,
+               "int4_matmul": int4_matmul, "flash_attention": flash_attention}
+    path_launches = {}
+
+    def reset_counts():
+        k1.reset_counts()
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counted.items()}
 
     def kind_of(req):
         return lane_family(req.prefetcher).split("/")[0], req.config.eviction
@@ -433,8 +551,74 @@ def smoke(args, pool) -> int:
         k2_err = max(k2_err, err)
         if k2_main is None:
             k2_main = (q, v, keep)
+    # K2 in bf16 at the reference's shapes
+    k2_bf16_err = 0.0
+    for b, n, d in K2_REF_SHAPES:
+        q = cuda_randn(rng, (b, n, d), torch.bfloat16)
+        v = cuda_randn(rng, (b, n, d), torch.bfloat16)
+        keep = torch.tensor(rng.random((b, n)) > 0.3, dtype=torch.bfloat16,
+                            device="cuda")
+        keep[:, :min(128, n) // 2] = 0.0         # a fully erased key tile
+        err = float((hlsh_attention(q, q, v, keep).float()
+                     - hlsh_attention_plain(q, q, v, keep).float()
+                     ).abs().max())
+        check(err <= K2_BF16_ATOL, f"K2 bf16 ({b},{n},{d}): max error {err}")
+        k2_bf16_err = max(k2_bf16_err, err)
+    # K4 at the reference's shapes x causal x both types, and at the
+    # Transformer family's shape in its float32
+    k4_err = {"float32": 0.0, "bfloat16": 0.0}
+    k4_cases = [(shape, causal, dt) for shape in K4_REF_SHAPES
+                for causal in (False, True)
+                for dt in (torch.float32, torch.bfloat16)]
+    k4_cases += [(K4_PATH_SHAPE, causal, torch.float32)
+                 for causal in (False, True)]
+    for shape, causal, dt in k4_cases:
+        err, _ = k4_against_plain(rng, shape, causal, dt)
+        name = str(dt).split(".")[1]
+        check(err <= K4_ATOL[name], f"K4 {shape} causal={causal} {name}: "
+              f"max error {err} (limit {K4_ATOL[name]})")
+        k4_err[name] = max(k4_err[name], err)
+    # bf16 at the path's shape, held against the plain version on float32
+    # copies of the same inputs: the bf16 plain version rounds its logits
+    # and probabilities to bf16 where K4 keeps them in float32, so at S = 30
+    # it is the less exact of the two
+    k4_bf16_path = {}
+    for causal in (False, True):
+        vs_plain, qkv = k4_against_plain(rng, K4_PATH_SHAPE, causal,
+                                         torch.bfloat16)
+        vs_f32 = float((flash_attention(*qkv, causal=causal).float()
+                        - flash_attention_plain(*(t.float() for t in qkv),
+                                                causal=causal)
+                        ).abs().max())
+        check(vs_f32 <= K4_ATOL["bfloat16"], f"K4 {K4_PATH_SHAPE} causal="
+              f"{causal} bfloat16: max error {vs_f32} from the float32 "
+              f"plain version (limit {K4_ATOL['bfloat16']})")
+        k4_bf16_path[f"causal={causal}"] = {"vs_plain": vs_plain,
+                                            "vs_float32_plain": vs_f32}
+    # K3 at the reference's shapes x both types (random codes), and at the
+    # predictor's shapes in float32 on packed weights
+    k3_err = {"float32": 0.0, "bfloat16": 0.0}
+    k3_abs = 0.0
+    k3_cases = [(shape, dt, False) for shape in K3_REF_SHAPES
+                for dt in (torch.float32, torch.bfloat16)]
+    k3_cases += [(shape, torch.float32, True) for shape in K3_PATH_SHAPES]
+    for (m, kd, n), dt, packer in k3_cases:
+        err, abs_err, _ = k3_against_plain(rng, m, kd, n, dt, packer)
+        name = str(dt).split(".")[1]
+        check(err < K3_RTOL[name], f"K3 ({m},{kd},{n}) {name}: relative "
+              f"error {err} (limit {K3_RTOL[name]})")
+        k3_err[name] = max(k3_err[name], err)
+        k3_abs = max(k3_abs, abs_err)
+    torch.cuda.synchronize()
     print(f"phase 4: K2 matched its plain version, max error {k2_err:.3g} "
-          f"(limit {K2_ATOL})", flush=True)
+          f"(limit {K2_ATOL}), in bf16 {k2_bf16_err:.3g} (limit "
+          f"{K2_BF16_ATOL}); K4 on {len(k4_cases)} cases, max error "
+          f"{k4_err} (limits {K4_ATOL}; bf16 at the path's shape, from "
+          f"the float32 plain version and from the bf16 one: "
+          + ", ".join(f"{c} {e['vs_float32_plain']:.3g} / "
+                      f"{e['vs_plain']:.3g}" for c, e in k4_bf16_path.items())
+          + f"); K3 on {len(k3_cases)} cases, relative "
+          f"error {k3_err} (limits {K3_RTOL})", flush=True)
 
     # ---- phase 5: the main path -----------------------------------------
     for bench in BENCHES:
@@ -445,14 +629,12 @@ def smoke(args, pool) -> int:
                              scales=[1.0], windows=[0.6],
                              device_fracs=list(FRACS),
                              service_steps=paper_tables.SERVICE_STEPS)
-    k1.reset_counts()
-    hlsh_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rows = sweep.run_sweep(grid, device="cuda")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"lane_replay": lane_replay.launches,
-                "hlsh_attention": hlsh_attention.launches}
+    launches = path_launches["main"] = read_counts()
     print(f"phase 5: main path, {len(rows)} rows in {main_s:.1f} s; "
           f"launches {launches} (K1 by family/policy "
           f"{dict(lane_replay.launches_by)})", flush=True)
@@ -469,6 +651,8 @@ def smoke(args, pool) -> int:
     check(launches["lane_replay"] > 0, "K1 never launched on the main path")
     check(launches["hlsh_attention"] > 0,
           "K2 never launched on the main path")
+    check(launches["int4_matmul"] > 0,
+          "K3 never launched on the main path's quantized inference")
     learned_reqs = []
     legacy_tree = {}
     checked = [(cell, r) for cell, r in zip(grid, rows)
@@ -492,10 +676,11 @@ def smoke(args, pool) -> int:
           "tree rows equal the legacy engine on the same inputs", flush=True)
 
     # ---- phase 6: the paper's Table 10 and Table 11 -----------------------
-    k1.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     t10, t11 = paper_tables.run(BENCHES, device="cuda")
     tables_s = time.perf_counter() - t0
+    path_launches["tables"] = read_counts()
     tables_launches = lane_replay.launches
     check(tables_launches > 0, "K1 never launched for the paper tables")
     print(f"phase 6: Table 10 (page hit rate, U=UVMSmart tree, R=learned), "
@@ -530,11 +715,12 @@ def smoke(args, pool) -> int:
 
     # ---- phase 7: the oversub-full matrix ---------------------------------
     matrix = expand_scenario("oversub-full")
-    k1.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     mrows = sweep.run_sweep(matrix, device="cuda")
     torch.cuda.synchronize()
     matrix_s = time.perf_counter() - t0
+    path_launches["oversub-full"] = read_counts()
     matrix_launches = lane_replay.launches
     matrix_by = dict(lane_replay.launches_by)
     replay_s = sum(r["seconds"] for r in mrows)
@@ -686,11 +872,12 @@ def smoke(args, pool) -> int:
 
     # ---- phase 10: the serve-full matrix --------------------------------
     scells = expand_scenario("serve-full")
-    k1.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     srows = sweep.run_sweep(scells, device="cuda")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    path_launches["serve-full"] = read_counts()
     serve_launches = lane_replay.launches
     serve_by = dict(lane_replay.launches_by)
     check(len(srows) == 300, f"serve-full gave {len(srows)} rows")
@@ -737,11 +924,12 @@ def smoke(args, pool) -> int:
 
     # ---- phase 11: the mt-full matrix -----------------------------------
     tcells = expand_scenario("mt-full")
-    k1.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     trows = sweep.run_sweep(tcells, device="cuda")
     torch.cuda.synchronize()
     mt_s = time.perf_counter() - t0
+    path_launches["mt-full"] = read_counts()
     mt_launches = lane_replay.launches
     mt_by = dict(lane_replay.launches_by)
     check(len(trows) == 360, f"mt-full gave {len(trows)} rows")
@@ -823,7 +1011,127 @@ def smoke(args, pool) -> int:
                       f"{np.mean([r['slowdown_t1'] for r in sel]):.4f},"
                       f"{max(r['interference_slowdown'] for r in sel):.4f}")
 
-    # ---- phase 12: kernel times -----------------------------------------
+    # ---- phase 12: transformer-smoke under the committed selector --------
+    xcells = expand_scenario("transformer-smoke")
+    with open(SELECTOR) as f:
+        selector = json.load(f)["selector"]
+    os.environ["REPRO_ADAPTIVE_TABLE"] = SELECTOR
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        xrows = sweep.run_sweep(xcells, device="cuda")
+        torch.cuda.synchronize()
+        smoke_s = time.perf_counter() - t0
+        path_launches["transformer-smoke"] = read_counts()
+        xprep = [sweep.prepare_cell(c, device="cuda") for c in xcells]
+    finally:
+        del os.environ["REPRO_ADAPTIVE_TABLE"]
+    # the assertions of scripts/ci_check.sh on the same scenario
+    check(len(xrows) == 4, f"transformer-smoke gave {len(xrows)} rows")
+    check(all(r["backend"] == "cuda" for r in xrows),
+          "a transformer-smoke row did not run on the cuda backend")
+    fams = {r["model_family"] for r in xrows}
+    check(fams == {"simplified", FAMILY}, f"transformer-smoke families {fams}")
+    check(not [r for r in xrows if r["eviction"] == "adaptive"],
+          "a transformer-smoke row recorded the adaptive literal")
+    by_bench = {}
+    for r in xrows:
+        by_bench.setdefault(r["bench"], set()).add(r["eviction"])
+    check(by_bench == {b: {selector[b]} for b in by_bench},
+          f"transformer-smoke evictions {by_bench} != the selector's picks")
+    smoke_counts = path_launches["transformer-smoke"]
+    check(smoke_counts["flash_attention"] > 0
+          and smoke_counts["int4_matmul"] > 0,
+          f"transformer-smoke launches {smoke_counts}: K4 (Transformer "
+          "inference) or K3 (quantized simplified inference) never ran")
+    xreqs = [ReplayRequest(tr, pf, cfg) for tr, cfg, pf, _ in xprep]
+    for r, want in zip(xrows, pool.map(legacy_replay, xreqs)):
+        same_row(r, want, f"transformer-smoke {r['bench']}/"
+                 f"{r['model_family']}")
+    print(f"phase 12 {card}: transformer-smoke, {len(xrows)} rows on cuda in "
+          f"{smoke_s:.1f} s, families {sorted(fams)}, evictions "
+          f"{ {b: sorted(p) for b, p in by_bench.items()} } as "
+          f"ADAPTIVE_selector.json picks; launches {smoke_counts}; every "
+          "row equals the legacy engine on the same inputs", flush=True)
+
+    # ---- phase 13: the Transformer family at full width --------------------
+    fcells = sweep.expand_grid(BENCHES, ["learned"], scales=[1.0],
+                               windows=[0.6], device_fracs=list(FRACS),
+                               evictions=["adaptive"],
+                               model_families=[FAMILY],
+                               service_steps=paper_tables.SERVICE_STEPS)
+    check("REPRO_ADAPTIVE_TABLE" not in os.environ,
+          "the family path must probe: no selector table")
+    reset_counts()
+    t0 = time.perf_counter()
+    frows = sweep.run_sweep(fcells, device="cuda")
+    torch.cuda.synchronize()
+    family_s = time.perf_counter() - t0
+    family_counts = path_launches["family"] = read_counts()
+    check(len(frows) == 2 * len(BENCHES), f"family path gave {len(frows)} "
+          "rows")
+    check(all(r["backend"] == "cuda" and r["model_family"] == FAMILY
+              for r in frows), "a family-path row is off cuda or the family")
+    check(family_counts["flash_attention"] > 0,
+          f"K4 never launched on the family path: {family_counts}")
+    # every probe-resolved policy against the legacy engine's probe
+    probe_jobs = []
+    for cell, r in zip(fcells, frows):
+        if cell.device_frac is None:
+            check(r["eviction"] == "lru", f"family {cell.bench}: no eviction "
+                  f"pressure but {r['eviction']}")
+            continue
+        tr = traces[cell.bench]
+        dp = int(tr.working_set_pages * cell.device_frac)
+        probe_jobs.append((cell, r, tr, dp))
+    preqs = [adaptive.probe_requests(tr, dp, adaptive.PROBE_ACCESSES,
+                                     adaptive.probe_proxy("learned"))
+             for _, _, tr, dp in probe_jobs]
+    plegacy = iter(pool.map(legacy_replay, [q for qs in preqs for q in qs]))
+    for (cell, r, tr, dp), qs in zip(probe_jobs, preqs):
+        cycles = tuple(float(next(plegacy).cycles) for _ in qs)
+        got = adaptive.probed(tr, dp, "learned")
+        check(got == (adaptive.pick(cycles), cycles)
+              and r["eviction"] == got[0],
+              f"family {cell.bench}: K1 probe {got}, row {r['eviction']}, "
+              f"legacy probe {adaptive.pick(cycles)} {cycles}")
+    resolved = {j[0].bench: j[1]["eviction"] for j in probe_jobs}
+    family_train = sum(r["train_seconds"] for r in frows)
+    print(f"phase 13 {card}: {FAMILY} family, {len(frows)} rows on cuda in "
+          f"{family_s:.1f} s (training {family_train:.1f} s, "
+          f"{sum(1 for r in frows if r['train_seconds'])} fits); launches "
+          f"{family_counts}; adaptive at half the working set resolved by "
+          f"{len(probe_jobs)} probes on K1 to {resolved}, each equal to the "
+          "legacy engine's probe, cycles included", flush=True)
+    # the family comparison of benchmarks/family_accuracy.py, from the fits
+    # of the main path (simplified) and of this path (the family): each
+    # fit's metrics stand on the row of the cell that trained it
+    family_cmp = []
+    print("bench,family,top1,f1,coverage,hit_rate_half")
+    for bench in BENCHES:
+        learned = [r for r in rows + frows
+                   if r["bench"] == bench and r["prefetcher"] == "learned"]
+        half = {r["model_family"]: r for r in learned
+                if r["device_frac"] == 0.5}
+        fits = {r["model_family"]: r for r in learned if "fit_top1" in r}
+        entry = {"bench": bench}
+        for fam in ("simplified", FAMILY):
+            check(fam in fits, f"no {fam} fit for {bench} on its path")
+            m = {k: fits[fam][f"fit_{k}"] for k in ("top1", "f1", "coverage")}
+            entry[fam] = dict(m, hit_rate_half=half[fam]["hit_rate"])
+            print(f"{bench},{fam},{m['top1']:.4f},{m['f1']:.4f},"
+                  f"{m['coverage']:.4f},{half[fam]['hit_rate']:.4f}")
+        entry["bar_held"] = (entry[FAMILY]["top1"]
+                             >= entry["simplified"]["top1"] - 1e-9)
+        family_cmp.append(entry)
+    held = [e["bench"] for e in family_cmp if e["bar_held"]]
+    print(f"phase 13: the reference's bar ({FAMILY} top-1 >= simplified "
+          f"top-1) held on {len(held)} of {len(family_cmp)} benches; missed "
+          f"on {[e['bench'] for e in family_cmp if not e['bar_held']]} "
+          "(reported, not a check: the port's training draws are torch's)",
+          flush=True)
+
+    # ---- phase 14: kernel times -----------------------------------------
     # K1 per family x policy on the largest batch of the matrix
     for key, v in variants.items():
         if len(key) > 2:
@@ -837,7 +1145,7 @@ def smoke(args, pool) -> int:
                  matrix_accesses=int(batch.iparams[:, 0].sum()),
                  ms=cuda_ms(lambda: lane_replay(**args_), reps=2),
                  bound_ms=k1_bound_ms(batch))
-        print(f"phase 12 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
+        print(f"phase 14 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
               f"launch on the matrix's largest batch ({len(big)} lanes, "
               f"{v['matrix_accesses']} accesses; bound {v['bound_ms']:.5f} "
               f"ms); golden batch {v['golden_ms']:.3f} ms, plain "
@@ -871,7 +1179,7 @@ def smoke(args, pool) -> int:
                 same = "without steps" if path == "serve" else "as quotas"
                 v[f"{path}_ms_{same.replace(' ', '_')}"] = cuda_ms(
                     lambda: lane_replay(**o_args), reps=1)
-            print(f"phase 12 {card}: K1 {'/'.join(key)} "
+            print(f"phase 14 {card}: K1 {'/'.join(key)} "
                   f"{v[path + '_ms']:.2f} ms per launch on {path}-full's "
                   f"largest batch ({v[path + '_lanes']} lanes, "
                   f"{v[path + '_accesses']} accesses, at most "
@@ -910,7 +1218,7 @@ def smoke(args, pool) -> int:
                            * k1.ROOT_PAGES),
             "ms": ms, "evictions": int(out[0, 7]),
             "us_per_eviction": ms * 1e3 / float(out[0, 7])})
-    print(f"phase 12 {card}: K1 tree/lru on one ServeDecode lane "
+    print(f"phase 14 {card}: K1 tree/lru on one ServeDecode lane "
           f"({int(base_out[0, 7])} evictions in {len(tr)} accesses, "
           f"{tr.working_set_pages} pages of working set) against the slots "
           "each eviction scans: " + ", ".join(
@@ -947,7 +1255,7 @@ def smoke(args, pool) -> int:
         tables_plain_ms=t_plain_s * 1e3, tables_bound_ms=k1_bound_ms(t_batch),
         tables_max_abs_err=err)
     tv = variants[("tree", "lru")]
-    print(f"phase 12 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
+    print(f"phase 14 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
           f"on the tables' tree batch ({len(tidx)} lanes, "
           f"{tv['tables_accesses']} accesses), equal to its plain version "
           f"({tv['tables_plain_ms']:.1f} ms on the host)", flush=True)
@@ -970,30 +1278,144 @@ def smoke(args, pool) -> int:
     k2_bytes = 4 * b * n * d * 4 + b * n * 4
     k2_bound_bytes = k2_bytes / HBM_BYTES_S * 1e3
     k2_bound_ops = k2_flops / F32_FLOPS * 1e3
-    paths = {"main": launches["lane_replay"], "tables": tables_launches,
-             "oversub-full": matrix_launches, "serve-full": serve_launches,
-             "mt-full": mt_launches}
+    # K2 in bf16 at the same shape and keep mask
+    qb, vb, keepb = (t.to(torch.bfloat16) for t in (q, v, keep))
+    qmb = (qb * keepb[..., None]).contiguous()
+    k2_bf16 = {
+        "dtype": "bfloat16", "shape": [b, n, d],
+        "max_abs_err": k2_bf16_err,
+        "ms": cuda_ms(lambda: hlsh_attention(qb, qb, vb, keepb), reps=50),
+        "plain_ms": cuda_ms(lambda: hlsh_attention_plain(qb, qb, vb, keepb),
+                            reps=50),
+        "library_ms": cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qmb, qmb, vb), reps=50)}
+    b2_bytes = (4 * b * n * d + b * n) * 2 / HBM_BYTES_S * 1e3
+    k2_bf16.update(bound_ms=max(b2_bytes, k2_bound_ops),
+                   bound_by="bytes" if b2_bytes >= k2_bound_ops
+                   else "operations")
+    # K4 at the Transformer family's shape; the yardstick is one
+    # scaled_dot_product_attention call on the same (B, H, S, D) tensors
+    fb, fh, _, fs, _, fd = K4_PATH_SHAPE
+    _, (fq, fk, fv) = k4_against_plain(rng, K4_PATH_SHAPE, False,
+                                        torch.float32)
+    k4_ms = cuda_ms(lambda: flash_attention(fq, fk, fv), reps=20)
+    k4_plain_ms = cuda_ms(lambda: flash_attention_plain(fq, fk, fv), reps=20)
+    k4_lib_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(fq, fk, fv),
+        reps=20)
+    k4_bytes = 4 * fb * fh * fs * fd * 4 / HBM_BYTES_S * 1e3
+    k4_ops = 4 * fb * fh * fs * fs * fd / F32_FLOPS * 1e3
+    # K3 at the classification head's shape (and, launch-bound, the layer
+    # products); the yardstick is one torch.matmul on the dequantized weight
+    k3_times = []
+    for m, kd, n3 in ((4096, 12, 20000),) + K3_PATH_SHAPES[:3]:
+        _, _, (x3, w3, s3) = k3_against_plain(rng, m, kd, n3,
+                                              torch.float32, True)
+        w_deq = unpack_int4(w3).float() * s3
+        b3 = (m * kd * 4 + w3.numel() + m * n3 * 4 + 4) / HBM_BYTES_S * 1e3
+        o3 = 2 * m * kd * n3 / F32_FLOPS * 1e3
+        k3_times.append({
+            "shape": [m, kd, n3],
+            "ms": cuda_ms(lambda: int4_matmul(x3, w3, s3), reps=20),
+            "plain_ms": cuda_ms(lambda: int4_matmul_plain(x3, w3, s3),
+                                reps=20),
+            "library_ms": cuda_ms(lambda: torch.matmul(x3, w_deq), reps=20),
+            "bound_ms": max(b3, o3),
+            "bound_by": "bytes" if b3 >= o3 else "operations"})
+    k3_head = k3_times[0]
+    # K3 on its path: one bench's quantized simplified inference
+    # (predict_trace, HLSH: six weight products a batch) with the products
+    # on K3 and as the plain fake-quant product, in turns on one model
+    svc = PredictorService(steps=paper_tables.SERVICE_STEPS, device="cuda")
+    svc.fit(traces[INFER_BENCH])
+    model = svc.result.model
+    infer_s = {"k3": [], "fake_quant": []}
+    infer_preds = {}
+    for which in ("fake_quant", "k3", "k3", "fake_quant"):
+        if which == "fake_quant":
+            model._mm = lambda x, w: x @ model._qw(w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer_preds[which] = svc.predict_trace()
+        torch.cuda.synchronize()
+        infer_s[which].append(time.perf_counter() - t0)
+        model.__dict__.pop("_mm", None)
+    agree = float(np.mean(infer_preds["k3"] == infer_preds["fake_quant"]))
+    check(agree >= 0.99, f"{INFER_BENCH} predictions with K3 agree with the "
+          f"fake-quant product's on {agree:.4f} of accesses")
+    print(f"phase 14 {card}: {INFER_BENCH} quantized simplified inference "
+          f"({len(traces[INFER_BENCH])} accesses): K3 "
+          f"{', '.join(f'{x:.3f}' for x in infer_s['k3'])} s, fake-quant "
+          f"product {', '.join(f'{x:.3f}' for x in infer_s['fake_quant'])} "
+          f"s; predictions equal on {agree:.4f} of accesses", flush=True)
+
+    def by_path(name):
+        return {p: c[name] for p, c in path_launches.items()}
+
     kernels = [
         {"name": "lane_replay", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": sum(paths.values()),
-         "launches_by_path": paths,
+         "replaces": K1_REPLACES,
+         "launches": sum(by_path("lane_replay").values()),
+         "launches_by_path": by_path("lane_replay"),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_s * 1e3,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
          "variants": [dict(v, bound_by="bytes", library_ms=None)
                       for v in variants.values()],
          "scan_vs_span": scan_span},
         {"name": "hlsh_attention", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["hlsh_attention"],
+         "replaces": K2_REPLACES,
+         "launches": sum(by_path("hlsh_attention").values()),
+         "launches_by_path": by_path("hlsh_attention"),
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_bytes, k2_bound_ops),
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
-         else "operations", "library_ms": k2_lib_ms},
+         else "operations", "library_ms": k2_lib_ms,
+         "variants": [k2_bf16]},
+        {"name": "int4_matmul", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES,
+         "launches": sum(by_path("int4_matmul").values()),
+         "launches_by_path": by_path("int4_matmul"),
+         "max_abs_err": k3_abs, "max_rel_err": k3_err,
+         "ms": k3_head["ms"], "plain_ms": k3_head["plain_ms"],
+         "bound_ms": k3_head["bound_ms"], "bound_by": k3_head["bound_by"],
+         "library_ms": k3_head["library_ms"], "shape": k3_head["shape"],
+         "variants": k3_times[1:],
+         "inference_s": dict(infer_s, bench=INFER_BENCH,
+                             predictions_equal=agree)},
+        {"name": "flash_attention", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES,
+         "launches": sum(by_path("flash_attention").values()),
+         "launches_by_path": by_path("flash_attention"),
+         "max_abs_err": max(k4_err.values()), "max_abs_err_by_dtype": k4_err,
+         "bf16_path_shape_err": k4_bf16_path,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": max(k4_bytes, k4_ops),
+         "bound_by": "bytes" if k4_bytes >= k4_ops else "operations",
+         "library_ms": k4_lib_ms, "shape": list(K4_PATH_SHAPE)},
     ]
-    print(f"phase 12 {card}: K1 {k1_ms:.3f} ms per launch on the main path's "
+    print(f"phase 14 {card}: K1 {k1_ms:.3f} ms per launch on the main path's "
           f"learned batch ({len(k1_batch.pages)} lanes padded, {n_acc} "
           f"accesses; plain version {plain_s * 1e3:.1f} ms on the host); K2 "
           f"{k2_ms:.4f} ms at ({b},{n},{d}) (plain {k2_plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {k2_lib_ms:.4f} ms); whole run "
+          f"scaled_dot_product_attention {k2_lib_ms:.4f} ms), in bf16 "
+          f"{k2_bf16['ms']:.4f} ms (plain {k2_bf16['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {k2_bf16['library_ms']:.4f} ms, "
+          f"bound {k2_bf16['bound_ms']:.4f} ms)", flush=True)
+    print(f"phase 14 {card}: K4 {k4_ms:.4f} ms per launch at "
+          f"{K4_PATH_SHAPE} float32 (plain {k4_plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {k4_lib_ms:.4f} ms, bound "
+          f"{max(k4_bytes, k4_ops):.4f} ms by "
+          f"{kernels[3]['bound_by']}); launches by path "
+          f"{by_path('flash_attention')}", flush=True)
+    for t in k3_times:
+        print(f"phase 14 {card}: K3 {t['ms']:.4f} ms per launch at "
+              f"{tuple(t['shape'])} float32 (plain {t['plain_ms']:.4f} ms, "
+              f"torch.matmul on the dequantized weight "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']})", flush=True)
+    print(f"phase 14: K3 launches by path {by_path('int4_matmul')}; K2 "
+          f"{by_path('hlsh_attention')}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1001,10 +1423,13 @@ def smoke(args, pool) -> int:
             json.dump({"device": kind, "nvidia_smi": smi, "rows": rows,
                        "table10": t10, "table11": t11,
                        "oversub_full": mrows, "serve_full": srows,
-                       "mt_full": trows, "kernels": kernels,
+                       "mt_full": trows, "transformer_smoke": xrows,
+                       "family": frows, "family_accuracy": family_cmp,
+                       "kernels": kernels, "launches_by_path": path_launches,
                        "main_path_s": main_s, "tables_s": tables_s,
                        "oversub_full_s": matrix_s, "serve_full_s": serve_s,
-                       "mt_full_s": mt_s}, f, indent=1)
+                       "mt_full_s": mt_s, "transformer_smoke_s": smoke_s,
+                       "family_s": family_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

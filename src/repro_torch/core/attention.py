@@ -1,5 +1,6 @@
-"""Attention for the predictor: full softmax attention and the paper's HLSH
-(Hamming-based LSH) attention (Algorithm 1) in its mask formulation.
+"""Attention for the predictor: full softmax attention, windowed (local)
+attention and the paper's HLSH (Hamming-based LSH) attention (Algorithm 1)
+in its mask formulation.
 
 HLSH erases rows whose Hamming score is >= HTOP (near-orthogonal to
 everything: negligible dot products) and lets near-duplicate rows (score
@@ -30,6 +31,21 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """(B, N, D) softmax(QK^T/sqrt(D))V."""
     d = q.shape[-1]
     logits = torch.einsum("bnd,bmd->bnm", q, k) / math.sqrt(d)
+    return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, dim=-1), v)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    """Windowed (banded) attention: each query attends only to keys within
+    ``window`` positions (|i - j| <= window); logits outside the band are
+    -1e9, as in the reference.  With window >= N-1 this is
+    :func:`full_attention`."""
+    d = q.shape[-1]
+    n = q.shape[-2]
+    idx = torch.arange(n, device=q.device)
+    band = (idx[:, None] - idx[None, :]).abs() <= window       # (N, N)
+    logits = torch.einsum("bnd,bmd->bnm", q, k) / math.sqrt(d)
+    logits = logits.masked_fill(~band, -1e9)
     return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, dim=-1), v)
 
 

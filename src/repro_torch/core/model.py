@@ -1,7 +1,7 @@
 """The predictor model (paper §4, §6) as an ``nn.Module``.
 
 Ports the ``transformer`` arch of the reference ``repro.core.model`` with
-``full``, ``hlsh`` and ``bypass`` attention: feature-embedding concat,
+``full``, ``local``, ``hlsh`` and ``bypass`` attention: feature-embedding concat,
 sinusoidal positions, encoder layers, last-token classification head,
 optional 4-bit fake quantization of weights and activations.  The
 simplified §6 predictor is this arch with 3 features (12 dims), 1 layer,
@@ -13,9 +13,17 @@ Parameters carry the reference pytree's names (``emb.<feature>``,
 draws from a ``torch.Generator``: the same distributions as the reference,
 not its numbers.
 
-At inference (autograd off) on a CUDA device, the HLSH layer runs the K2
-kernel (``repro_torch.kernels.ops.hlsh_attention``); with autograd on it
-runs the differentiable ``core.attention.hlsh_apply``.
+At inference (autograd off) the layers go through the kernel wrappers of
+``repro_torch.kernels.ops``, which launch the kernels on CUDA tensors and
+run their plain versions on CPU tensors: HLSH attention on K2, full
+attention on K4 (the heads viewed as (B, H, S, Dh), no copy), and under
+quantization every weight product on K3 (weights packed on each call from
+the current parameters, with the codes and scale of ``fake_quant_tensor``).
+With autograd on, the layers run the differentiable plain PyTorch code:
+``core.attention.{full_attention,hlsh_apply}`` and ``x @
+fake_quant_tensor(w)``.  Local attention is plain everywhere (the reference
+has no kernel for it); the embedding gathers are no products and stay
+``fake_quant_tensor(table)[x]``.
 """
 from __future__ import annotations
 
@@ -27,14 +35,15 @@ from torch import nn
 
 from repro_torch.core import attention as attn_lib
 from repro_torch.core.families import PredictorConfig
-from repro_torch.core.quantize import fake_quant, fake_quant_tensor
+from repro_torch.core.quantize import (fake_quant, fake_quant_tensor,
+                                       pack_int4_like_fake_quant)
 from repro_torch.core.vocab import FEATURE_BUCKETS
 from repro_torch.kernels import ops
 
 #: attention kinds of the transformer arch this port implements; the
-#: reference's ``local`` and ``lsh`` attention and its fc/mlp/cnn/lstm
-#: archs are later slices of the port
-PORTED_ATTENTION = ("full", "hlsh", "bypass")
+#: reference's ``lsh`` attention and its fc/mlp/cnn/lstm archs are later
+#: slices of the port
+PORTED_ATTENTION = ("full", "local", "hlsh", "bypass")
 
 def _dense_init(g: torch.Generator, shape, scale=None) -> torch.Tensor:
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
@@ -121,10 +130,27 @@ class Predictor(nn.Module):
     def _qa(self, a: torch.Tensor) -> torch.Tensor:
         return fake_quant(a) if self.cfg.quantize else a
 
+    def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ _qw(w)``; at quantized inference through K3 on ``w``'s
+        int4 codes, with the activations flattened to (M, K)."""
+        if not self.cfg.quantize or torch.is_grad_enabled():
+            return x @ self._qw(w)
+        packed, scale = pack_int4_like_fake_quant(w)
+        y = ops.int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), packed,
+                            scale)
+        return y[:, :w.shape[1]].reshape(*x.shape[:-1], w.shape[1])
+
     def _attention(self, q, k, v) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.attention == "local":
+            return attn_lib.local_attention(q, k, v, cfg.local_window)
         if cfg.attention == "full":
-            return attn_lib.full_attention(q, k, v)
+            if torch.is_grad_enabled():
+                return attn_lib.full_attention(q, k, v)
+            bh, s, dh = q.shape
+            heads = (bh // cfg.n_heads, cfg.n_heads, s, dh)
+            return ops.flash_attention(q.view(heads), k.view(heads),
+                                       v.view(heads)).view(bh, s, dh)
         plan = attn_lib.hlsh_plan(q, self.lsh_r, self.lsh_sel, cfg.n_hashes,
                                   cfg.htop, cfg.hbot)
         if torch.is_grad_enabled():
@@ -138,18 +164,18 @@ class Predictor(nn.Module):
         if cfg.attention != "bypass":
             if cfg.attention == "hlsh":
                 # shared-QK structure (Reformer / paper Algorithm 1)
-                q = k = h @ self._qw(lp["wq"])
+                q = k = self._mm(h, lp["wq"])
             else:
-                q = h @ self._qw(lp["wq"])
-                k = h @ self._qw(lp["wk"])
-            v = h @ self._qw(lp["wv"])
+                q = self._mm(h, lp["wq"])
+                k = self._mm(h, lp["wk"])
+            v = self._mm(h, lp["wv"])
             qh, kh, vh = (_heads(t, cfg.n_heads) for t in (q, k, v))
             o = _unheads(self._attention(qh, kh, vh), cfg.n_heads, b)
-            o = o @ self._qw(lp["wo"])
+            o = self._mm(o, lp["wo"])
             h = _layernorm(self._qa(h + o), lp["ln1_g"], lp["ln1_b"])
-        ff = torch.relu(h @ self._qw(lp["w1"]) + lp["b1"])
+        ff = torch.relu(self._mm(h, lp["w1"]) + lp["b1"])
         ff = self._qa(ff)
-        ff = ff @ self._qw(lp["w2"]) + lp["b2"]
+        ff = self._mm(ff, lp["w2"]) + lp["b2"]
         return _layernorm(self._qa(h + ff), lp["ln2_g"], lp["ln2_b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,4 +187,4 @@ class Predictor(nn.Module):
         for lp in self.layers:
             h = self._encoder_layer(lp, h)
         last = h[:, -1]
-        return last @ self._qw(self.head) + self.head_b
+        return self._mm(last, self.head) + self.head_b

@@ -1,13 +1,12 @@
 """Quantization (paper §6): clamp weights and activations to [-8, +8] on a
-4-bit integer grid, trained with straight-through estimation; plus the int4
-pack/unpack of the quantized inference path (kept in numpy, as in the
-reference ``repro.core.quantize``).
+4-bit integer grid, trained with straight-through estimation, and the
+device-side int4 packer of the quantized inference path on K3
+(:func:`pack_int4_like_fake_quant`).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 QMIN, QMAX = -8.0, 7.0   # 16 levels, step 1.0, representable in 4 bits
@@ -28,24 +27,19 @@ def fake_quant_tensor(x: torch.Tensor) -> torch.Tensor:
     return x + (q - x).detach()
 
 
-def quantize_int4(x: np.ndarray) -> Tuple[np.ndarray, float]:
-    """Real int4 quantization: returns packed uint8 (two nibbles each) and
-    the per-tensor scale."""
-    s = max(float(np.max(np.abs(x))), 1e-6) / (-QMIN)
-    q = np.clip(np.round(x / s), QMIN, QMAX).astype(np.int8)
-    u = (q - int(QMIN)).astype(np.uint8)           # 0..15
-    flat = u.reshape(-1)
-    if flat.size % 2:
-        flat = np.concatenate([flat, np.zeros(1, np.uint8)])
-    packed = (flat[0::2] << 4) | flat[1::2]
-    return packed, s
+def pack_int4_like_fake_quant(w: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a (K, N) weight for K3 with exactly the codes and scale of
+    :func:`fake_quant_tensor` (float32, on w's device): returns the (K,
+    ceil(N / 2)) uint8 codes (hi nibble = even column, code = value + 8) and
+    the 0-d float32 scale, so ``codes * scale`` is the fake-quantized
+    weight.  An odd N gets one zero column; the caller slices the product's
+    last column off."""
+    w = w.detach().float()
+    s = torch.clamp(w.abs().max(), min=1e-6) / (-QMIN)
+    codes = torch.clamp(torch.round(w / s), QMIN, QMAX)
+    if codes.shape[1] % 2:
+        codes = torch.nn.functional.pad(codes, (0, 1))
+    u = (codes - QMIN).to(torch.uint8)                    # 0..15
+    return ((u[:, 0::2] << 4) | u[:, 1::2]).contiguous(), s
 
-
-def dequantize_int4(packed: np.ndarray, scale: float, size: int,
-                    shape) -> np.ndarray:
-    hi = (packed >> 4).astype(np.int8)
-    lo = (packed & 0xF).astype(np.int8)
-    flat = np.empty(packed.size * 2, np.int8)
-    flat[0::2] = hi
-    flat[1::2] = lo
-    return ((flat[:size] + int(QMIN)) * scale).reshape(shape).astype(np.float32)

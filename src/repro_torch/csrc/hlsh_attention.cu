@@ -16,8 +16,11 @@
 // output written once.  No tensor cores (D = 12 is below a wgmma tile's
 // depth) -- speed is later work.
 //
-// Any N, any D up to 128; the ragged last tile is masked.
+// Any N, any D up to 128; the ragged last tile is masked.  q, k, v, keep and
+// the output are float32 or bf16 (one type for all), staged and accumulated
+// in float32.
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <math.h>
 
 #define TQ 32        // query rows per block
@@ -25,11 +28,25 @@
 #define THREADS 128  // >= TK: one thread per key for the tile's kept count
 #define MAX_D 128
 
-__global__ void hlsh_attention_kernel(const float* __restrict__ q,
-                                      const float* __restrict__ k,
-                                      const float* __restrict__ v,
-                                      const float* __restrict__ keep,
-                                      float* __restrict__ out,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void hlsh_attention_kernel(const T* __restrict__ q,
+                                      const T* __restrict__ k,
+                                      const T* __restrict__ v,
+                                      const T* __restrict__ keep,
+                                      T* __restrict__ out,
                                       int n, int d, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;              // TQ x d, keep-masked
@@ -43,14 +60,15 @@ __global__ void hlsh_attention_kernel(const float* __restrict__ q,
   const int b = blockIdx.x;
   const int q0 = blockIdx.y * TQ;
   const size_t row0 = (size_t)b * n;
-  const float* qb = q + row0 * d;
-  const float* kb = k + row0 * d;
-  const float* vb = v + row0 * d;
-  const float* keepb = keep + row0;
+  const T* qb = q + row0 * d;
+  const T* kb = k + row0 * d;
+  const T* vb = v + row0 * d;
+  const T* keepb = keep + row0;
 
   for (int e = tid; e < TQ * d; e += THREADS) {
     const int i = e / d, qi = q0 + i;
-    sQ[e] = qi < n ? qb[(size_t)qi * d + e % d] * keepb[qi] : 0.f;
+    sQ[e] = qi < n ? to_f32(qb[(size_t)qi * d + e % d]) * to_f32(keepb[qi])
+                    : 0.f;
     sAcc[e] = 0.f;
   }
   if (tid < TQ) {
@@ -61,12 +79,13 @@ __global__ void hlsh_attention_kernel(const float* __restrict__ q,
 
   for (int k0 = 0; k0 < n; k0 += TK) {
     const int nk = min(TK, n - k0);
-    const int kept = __syncthreads_count(tid < nk && keepb[k0 + tid] != 0.f);
+    const int kept =
+        __syncthreads_count(tid < nk && to_f32(keepb[k0 + tid]) != 0.f);
     for (int e = tid; e < nk * d; e += THREADS) {
       const int j = e / d;
       const size_t src = (size_t)(k0 + j) * d + e % d;
-      sV[e] = vb[src];
-      if (kept) sK[e] = kb[src] * keepb[k0 + j];
+      sV[e] = to_f32(vb[src]);
+      if (kept) sK[e] = to_f32(kb[src]) * to_f32(keepb[k0 + j]);
     }
     __syncthreads();
     if (kept > 0) {
@@ -128,27 +147,41 @@ __global__ void hlsh_attention_kernel(const float* __restrict__ q,
 
   for (int e = tid; e < TQ * d; e += THREADS) {
     const int i = e / d, qi = q0 + i;
-    if (qi < n) out[(row0 + qi) * d + e % d] = sAcc[e] / fmaxf(sL[i], 1e-30f);
+    if (qi < n)
+      out[(row0 + qi) * d + e % d] =
+          from_f32<T>(sAcc[e] / fmaxf(sL[i], 1e-30f));
   }
 }
 
-extern "C" int hlsh_attention_launch(const float* q, const float* k,
-                                     const float* v, const float* keep,
-                                     float* out, int b, int n, int d,
-                                     void* stream) {
+template <typename T>
+static int launch(const void* q, const void* k, const void* v,
+                  const void* keep, void* out, int b, int n, int d,
+                  void* stream) {
   if (b <= 0 || n <= 0) return (int)cudaSuccess;
   if (d <= 0 || d > MAX_D) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)(2 * TQ * d + 2 * TK * d + TQ * TK);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        hlsh_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hlsh_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(b, (n + TQ - 1) / TQ);
-  hlsh_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, keep, out, n, d, 1.0f / sqrtf((float)d));
+  hlsh_attention_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)keep, (T*)out, n, d,
+      1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16
+extern "C" int hlsh_attention_launch(const void* q, const void* k,
+                                     const void* v, const void* keep,
+                                     void* out, int b, int n, int d,
+                                     int dtype, void* stream) {
+  if (dtype == 0) return launch<float>(q, k, v, keep, out, b, n, d, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, keep, out, b, n, d, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

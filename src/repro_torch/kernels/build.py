@@ -26,6 +26,8 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FLAGS: Dict[str, List[str]] = {
     "lane_replay": _COMMON + ["--fmad=false"],
     "hlsh_attention": _COMMON,
+    "int4_matmul": _COMMON,
+    "flash_attention": _COMMON,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

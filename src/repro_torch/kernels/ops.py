@@ -4,7 +4,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.hlsh_attention import hlsh_attention as _hlsh_core
+from repro_torch.kernels.int4_matmul import int4_matmul
+
+__all__ = ["flash_attention", "hlsh_attention", "int4_matmul"]
 
 
 def hlsh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

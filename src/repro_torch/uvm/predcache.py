@@ -149,7 +149,9 @@ def get_or_train(trace, *, steps: int = 150, seed: int = 0,
     """The ``predict_trace`` array for (trace, predictor config), training
     at most once per key across the memo and the disk cache.  When this
     call trains, ``timings`` (if given) receives ``train_s`` (fit, including
-    the evaluation pass) and ``predict_s``."""
+    the evaluation pass), ``predict_s``, the fit's held-out ``top1`` and
+    ``f1``, and ``coverage``, the share of accesses with a gated prediction
+    (what ``benchmarks/family_accuracy.py`` reports per family)."""
     from repro_torch.core.service import PredictorService
 
     svc = PredictorService(steps=steps, seed=seed, device=device,
@@ -167,7 +169,10 @@ def get_or_train(trace, *, steps: int = 150, seed: int = 0,
         t2 = time.perf_counter()
         preds.flags.writeable = False
         if timings is not None:
-            timings.update(train_s=t1 - t0, predict_s=t2 - t1)
+            timings.update(train_s=t1 - t0, predict_s=t2 - t1,
+                           top1=float(svc.result.metrics["top1"]),
+                           f1=float(svc.result.metrics["f1"]),
+                           coverage=float(np.mean(preds >= 0)))
         if cache_dir is not None:
             store(cache_dir, key, preds)
     _MEMO[key] = preds

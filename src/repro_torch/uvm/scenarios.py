@@ -10,10 +10,9 @@ scenario name.
 Built-ins (see each ``description``): ``oversub-full`` (11 paper benchmarks
 x capacity ratios 1.5/1.0/0.75/0.5 x lru/random/hotcold x the five
 prefetchers, 660 cells), ``oversub-smoke``, ``serve-full``/``serve-smoke``,
-``mt-full``/``mt-smoke``, ``chaos-smoke`` and ``transformer-smoke``.  The
-adaptive-eviction scenario (``transformer-smoke``) registers and expands
-here, but its cells need a later slice of the port: when run,
-``repro_torch.uvm.sweep.check_cell`` raises with the reason.
+``mt-full``/``mt-smoke``, ``chaos-smoke`` and ``transformer-smoke`` (the
+simplified and reference-Transformer families under the ``adaptive``
+eviction pseudo-policy, ``repro_torch.uvm.adaptive``).
 
 Usage::
 
@@ -30,12 +29,9 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.families import MODEL_FAMILIES
 from repro_torch.offload.serve_trace import is_serve_bench
+from repro_torch.uvm.adaptive import ADAPTIVE_POLICY
 from repro_torch.uvm.eviction import EVICTION_POLICIES
 from repro_torch.uvm.sweep import PREFETCHERS, SweepCell
-
-#: the eviction pseudo-policy that is resolved per cell at prepare time;
-#: the port names it and refuses to run it (a later slice)
-ADAPTIVE_POLICY = "adaptive"
 
 #: the paper's full benchmark suite (Table 10) — kept in sync with
 #: ``repro_torch.traces.generators.BENCHMARKS`` by :meth:`Scenario.validate`

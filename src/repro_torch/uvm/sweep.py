@@ -11,14 +11,16 @@ eviction policies on the benchmark traces, the serve traces
 percentiles from K1's step clocks) and the two-tenant interleaved pairs
 (``repro_torch.traces.interleave``: shared capacity or hard quotas, rows
 with per-tenant hit rates and interference slowdowns), and the named
-scenarios of ``repro_torch.uvm.scenarios``; it raises on anything else.
-The reference's lease pool, resume and the adaptive policy are later
-slices.
+scenarios of ``repro_torch.uvm.scenarios``, with learned cells of every
+model family of ``repro_torch.core.families`` and the ``adaptive`` eviction
+pseudo-policy (``repro_torch.uvm.adaptive``, resolved per cell before its
+replay config exists); it raises on anything else.  The reference's lease
+pool and resume are later slices.
 
-Two departures from the reference, both deliberate: a row that arrives
+Three departures from the reference, all deliberate: a row that arrives
 without the step clocks it needs raises (the reference re-replays it on
-its NumPy engine), and the tenants' solo replays behind the slowdown
-columns run as K1 lanes in the grid's own lane batches (the reference
+its NumPy engine); the tenants' solo replays behind the slowdown columns,
+and the adaptive policy's probe replays, run as K1 lanes (the reference
 replays them one at a time on its NumPy engine).
 
 Programmatic use::
@@ -36,6 +38,9 @@ CLI::
         --out results/oversub
     PYTHONPATH=src python -m repro_torch.uvm.sweep --scenario serve-smoke \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.uvm.sweep --benches ATAX \\
+        --prefetchers learned --model-families simplified,transformer \\
+        --device-fracs 0.5 --evictions adaptive
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import torch
 
 from repro_torch.core.families import MODEL_FAMILIES
 from repro_torch.traces.trace import Trace
+from repro_torch.uvm import adaptive
 from repro_torch.uvm.config import UVMConfig
 from repro_torch.uvm.eviction import EVICTION_POLICIES
 from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
@@ -68,9 +74,10 @@ _PREFETCHER_TYPES = {"none": NoPrefetcher, "block": BlockPrefetcher,
                      "tree": TreePrefetcher, "learned": LearnedPrefetcher,
                      "oracle": OraclePrefetcher}
 PREFETCHERS = tuple(_PREFETCHER_TYPES)
-#: eviction policies the port replays (the ``adaptive`` pseudo-policy is a
-#: later slice)
+#: eviction policies the port replays; a cell may also name the
+#: ``adaptive`` pseudo-policy, which resolves to one of them
 EVICTIONS = EVICTION_POLICIES
+_EVICTION_VOCAB = EVICTIONS + (adaptive.ADAPTIVE_POLICY,)
 
 #: the reference's row-schema version: rows carry its columns, so port rows
 #: and reference rows of the same cells can be compared column by column
@@ -149,7 +156,6 @@ def check_cell(cell: SweepCell) -> None:
     from repro_torch.offload.serve_trace import is_serve_bench
     from repro_torch.traces.generators import BENCHMARKS
     from repro_torch.traces.interleave import is_mt_bench
-    from repro_torch.uvm.scenarios import ADAPTIVE_POLICY
     mt = is_mt_bench(cell.bench)
     later = None
     if not (mt or is_serve_bench(cell.bench) or cell.bench in BENCHMARKS):
@@ -159,15 +165,12 @@ def check_cell(cell: SweepCell) -> None:
     elif parse_capacity_split(cell.capacity_split) is not None and not mt:
         later = (f"capacity splits ({cell.capacity_split!r}) need a "
                  "multi-tenant bench like 'ATAX+Pathfinder'")
-    elif cell.eviction == ADAPTIVE_POLICY:
-        later = (f"eviction {cell.eviction!r}: the adaptive policy is a "
-                 "later slice of the port")
     elif cell.prefetcher not in PREFETCHERS:
         later = (f"unknown prefetcher {cell.prefetcher!r}; choose from "
                  f"{','.join(PREFETCHERS)}")
-    elif cell.eviction not in EVICTIONS:
+    elif cell.eviction not in _EVICTION_VOCAB:
         later = (f"unknown eviction {cell.eviction!r}; choose from "
-                 f"{','.join(EVICTIONS)}")
+                 f"{','.join(_EVICTION_VOCAB)}")
     elif cell.model_family not in MODEL_FAMILIES:
         later = f"unknown model family {cell.model_family!r}"
     elif cell.backend != "cuda":
@@ -183,14 +186,18 @@ def expand_grid(benches: Sequence[str], prefetchers: Sequence[str], *,
                 prediction_us: Sequence[float] = (1.0,),
                 device_fracs: Sequence[Optional[float]] = (None,),
                 evictions: Sequence[str] = ("lru",),
+                model_families: Sequence[str] = ("simplified",),
+                capacity_splits: Sequence[Optional[str]] = (None,),
                 service_steps: int = 150) -> List[SweepCell]:
     """Cartesian product of the sweep axes, in the reference's order."""
     return [SweepCell(bench=bench, prefetcher=pf, scale=scale, seed=seed,
                       window=window, prediction_us=us, device_frac=frac,
-                      eviction=ev, service_steps=service_steps)
+                      eviction=ev, capacity_split=split,
+                      service_steps=service_steps, model_family=fam)
             for bench in benches for pf in prefetchers for scale in scales
             for seed in seeds for window in windows for us in prediction_us
-            for frac in device_fracs for ev in evictions]
+            for frac in device_fracs for ev in evictions
+            for split in capacity_splits for fam in model_families]
 
 
 @functools.lru_cache(maxsize=32)
@@ -239,15 +246,36 @@ def make_prefetcher(cell: SweepCell, trace: Trace, config: UVMConfig,
     return _PREFETCHER_TYPES[cell.prefetcher]()
 
 
-def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
-                 device: str = "cuda",
-                 timings: Optional[Dict[str, float]] = None):
-    """One cell's (trace, config, prefetcher, device_pages)."""
-    check_cell(cell)
+def _trace_and_capacity(cell: SweepCell) -> Tuple[Trace, Optional[int]]:
     trace = load_trace(cell.bench, cell.scale, cell.seed, cell.window)
     device_pages = cell.device_pages
     if device_pages is None and cell.device_frac is not None:
         device_pages = int(trace.working_set_pages * cell.device_frac)
+    return trace, device_pages
+
+
+def resolve_evictions(cells: Sequence[SweepCell], device: str = "cuda"
+                      ) -> List[str]:
+    """Each cell's concrete eviction policy; the probes of every adaptive
+    cell run together as K1 lanes (``adaptive.resolve_all``)."""
+    return adaptive.resolve_all(
+        [(cell.eviction, cell.bench, *_trace_and_capacity(cell),
+          cell.prefetcher) for cell in cells], device=device)
+
+
+def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
+                 device: str = "cuda",
+                 timings: Optional[Dict[str, float]] = None):
+    """One cell's (trace, config, prefetcher, device_pages).  The adaptive
+    pseudo-policy resolves to a concrete one here, before the replay config
+    exists: lane batches stay policy-homogeneous and the row's eviction
+    column (from the stats) records what ran."""
+    check_cell(cell)
+    trace, device_pages = _trace_and_capacity(cell)
+    eviction = adaptive.resolve_eviction(cell.eviction, cell.bench, trace,
+                                         device_pages,
+                                         prefetcher=cell.prefetcher,
+                                         device=device)
     fracs = parse_capacity_split(cell.capacity_split)
     tenant_pages = None
     if fracs is not None:
@@ -259,7 +287,7 @@ def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
         tenant_pages = (int(fracs[0] * device_pages),
                         int(fracs[1] * device_pages))
     config = UVMConfig(prediction_overhead_us=cell.prediction_us,
-                       device_pages=device_pages, eviction=cell.eviction,
+                       device_pages=device_pages, eviction=eviction,
                        tenant_pages=tenant_pages)
     prefetcher = make_prefetcher(cell, trace, config, cache_dir, device,
                                  timings)
@@ -425,8 +453,8 @@ def _solo_requests(cells: Sequence[SweepCell], prepared: Sequence[Tuple],
                             device_pages=capacity, eviction=config.eviction)
             solo_tm: Dict[str, float] = {}
             pf = make_prefetcher(cell, solo, cfg, cache_dir, device, solo_tm)
-            for k, v in solo_tm.items():
-                tm[k] = tm.get(k, 0.0) + v
+            for k in ("train_s", "predict_s"):
+                tm[k] = tm.get(k, 0.0) + solo_tm.get(k, 0.0)
             solos[key] = ReplayRequest(solo, pf, cfg)
     return solos, uses
 
@@ -472,7 +500,8 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
               verbose: bool = False) -> List[Dict]:
     """Run a grid of cells; returns rows in the order of ``cells``.
 
-    Cells are prepared in order (learned cells train or hit the prediction
+    The adaptive cells' probes run first, together; then cells are
+    prepared in order (learned cells train or hit the prediction
     cache), the tenants' solo replays of multi-tenant cells join them, and
     everything replays as homogeneous K1 lane batches; serve and
     multi-tenant cells carry their step bounds into K1.  Row ``seconds`` is
@@ -487,6 +516,9 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
         check_cell(cell)
     if cache_dir is None and out_dir is not None:
         cache_dir = os.path.join(out_dir, "cache")
+    # every adaptive cell's probes in one backend call; prepare_cell then
+    # reads its policy from the memo
+    resolve_evictions(cells, device)
     prepared, timings = [], []
     for cell in cells:
         tm: Dict[str, float] = {}
@@ -522,6 +554,10 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
             seconds[solo_index[key]] / users[key] for key in uses[i]))
         row.update(train_seconds=timings[i].get("train_s", 0.0),
                    predict_seconds=timings[i].get("predict_s", 0.0))
+        if "top1" in timings[i]:
+            # the fit's own metrics, on the row of the cell that trained it
+            row.update({f"fit_{m}": timings[i][m]
+                        for m in ("top1", "f1", "coverage")})
         if _serve_step_bounds(trace) is not None:
             row.update(_serve_latency_row(cell, trace, config, stats[i],
                                           cache_dir, device))
@@ -561,9 +597,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prediction-us", default="1.0")
     ap.add_argument("--device-fracs", default="",
                     help="e.g. '0.5,0.75' (empty = no oversubscription)")
+    ap.add_argument("--capacity-splits", default="",
+                    help="multi-tenant capacity splits for '<A>+<B>' "
+                         "benches, e.g. 'shared,0.5/0.5,0.4/0.4' "
+                         "(empty = shared capacity)")
     ap.add_argument("--evictions", default="lru",
                     help="eviction policies under oversubscription, comma "
-                         f"list from {','.join(EVICTIONS)}")
+                         f"list from {','.join(_EVICTION_VOCAB)} ('adaptive' "
+                         "resolves per cell before its replay; rows record "
+                         "the concrete policy)")
+    ap.add_argument("--model-families", default="simplified",
+                    help="predictor families for learned cells, comma list "
+                         f"from {','.join(MODEL_FAMILIES)}")
     ap.add_argument("--scenario", default=None,
                     help="expand a named scenario from "
                          "repro_torch.uvm.scenarios (e.g. 'oversub-full': "
@@ -601,11 +646,28 @@ def main(argv: Optional[List[str]] = None) -> None:
         if bad:
             ap.error(f"unknown prefetcher(s) {','.join(bad)}; "
                      f"choose from {','.join(PREFETCHERS)}")
+        splits: List[Optional[str]] = [None]
+        if args.capacity_splits:
+            splits = list(args.capacity_splits.split(","))
+            for split in splits:
+                try:
+                    parse_capacity_split(split)
+                except ValueError as e:
+                    ap.error(str(e))
+            mt_less = [b for b in benches if not is_mt_bench(b)]
+            if mt_less and any(parse_capacity_split(x) for x in splits):
+                ap.error(f"--capacity-splits needs multi-tenant benches; "
+                         f"{','.join(mt_less)} are single-tenant")
         evictions = args.evictions.split(",")
-        bad = [e for e in evictions if e not in EVICTIONS]
+        bad = [e for e in evictions if e not in _EVICTION_VOCAB]
         if bad:
-            ap.error(f"eviction policy(ies) {','.join(bad)} not in the "
-                     f"port; choose from {','.join(EVICTIONS)}")
+            ap.error(f"unknown eviction policy(ies) {','.join(bad)}; "
+                     f"choose from {','.join(_EVICTION_VOCAB)}")
+        model_families = args.model_families.split(",")
+        bad = [m for m in model_families if m not in MODEL_FAMILIES]
+        if bad:
+            ap.error(f"unknown model family(ies) {','.join(bad)}; "
+                     f"choose from {','.join(MODEL_FAMILIES)}")
         fracs: List[Optional[float]] = [None]
         if args.device_fracs:
             fracs += [float(x) for x in args.device_fracs.split(",")]
@@ -615,6 +677,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                      for x in args.windows.split(",")],
             prediction_us=[float(x) for x in args.prediction_us.split(",")],
             device_fracs=fracs, evictions=evictions,
+            model_families=model_families, capacity_splits=splits,
             service_steps=args.steps)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda but no CUDA device is available "

@@ -20,8 +20,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import families
 from repro_torch.core.model import Predictor
 from repro_torch.core.vocab import FEATURE_BUCKETS
+from repro_torch.core.quantize import pack_int4_like_fake_quant
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.hlsh_attention import (hlsh_attention,
                                                 hlsh_attention_plain)
+from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
 from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, lane_replay,
                                              lane_replay_plain)
 from repro_torch.uvm import golden as G
@@ -204,6 +208,94 @@ def test_k2_matches_its_plain_version(device, b, n, d):
     assert (got - want).abs().max().item() <= 2e-4
 
 
+@pytest.mark.parametrize("b,n,d", [(1, 128, 32), (2, 256, 64),
+                                   (1, 512, 128)])
+def test_k2_bf16_matches_its_plain_version(device, b, n, d):
+    """K2 in bf16 at the reference's test shapes, its bf16 tolerance."""
+    g = torch.Generator(device="cpu").manual_seed(b + n + d)
+    q = torch.randn((b, n, d), generator=g).to(device, torch.bfloat16)
+    v = torch.randn((b, n, d), generator=g).to(device, torch.bfloat16)
+    keep = (torch.rand((b, n), generator=g) > 0.3).to(device, torch.bfloat16)
+    keep[:, :min(128, n) // 2] = 0.0
+    got = hlsh_attention(q, q, v, keep)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    want = hlsh_attention_plain(q, q, v, keep)
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+#: the reference's flash-attention test shapes in both of its types, and
+#: the Transformer family's inference shape (4096 sequences, 4 heads, 30
+#: tokens, head dim 200 / 4) in the family's float32
+K4_CASES = [(shape, dtype) for shape in (
+    (1, 2, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64),
+    (1, 8, 1, 128, 384, 128), (1, 4, 4, 256, 128, 32))
+    for dtype in (torch.float32, torch.bfloat16)] + [
+    ((4096, 4, 4, 30, 30, 50), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", K4_CASES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_matches_its_plain_version(device, shape, dtype, causal):
+    b, h, hkv, sq, sk, d = shape
+    g = torch.Generator(device="cpu").manual_seed(b * h + sq + sk + d)
+    q = torch.randn((b, h, sq, d), generator=g).to(device, dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1 and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_bf16_at_the_path_shape_matches_the_float32_plain_version(
+        device, causal):
+    """K4 in bf16 at the Transformer family's shape (ragged D = 50, S =
+    30), held at the reference's bf16 tolerance against the plain version
+    on float32 copies of the same inputs: the bf16 plain version rounds its
+    logits and probabilities to bf16 where K4 keeps them in float32."""
+    b, h, s, d = 4096, 4, 30, 50
+    g = torch.Generator(device="cpu").manual_seed(b + h + s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g).to(device,
+                                                          torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+#: the reference's int4 test shapes, the simplified predictor's layer
+#: products (4096 x 30 token rows, widths 12 and 48) and its head at an even
+#: and an odd class count (the odd one padded by one zero column)
+K3_SHAPES = [(128, 128, 256), (128, 256, 256), (256, 128, 512),
+             (4096 * 30, 12, 12), (4096 * 30, 12, 48), (4096 * 30, 48, 12),
+             (4096, 12, 20000), (4096, 12, 19999)]
+
+
+@pytest.mark.parametrize("m,k,n", K3_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_its_plain_version(device, m, k, n, dtype):
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g).to(device, dtype)
+    w = torch.randn((k, n), generator=g).to(device) * 0.3
+    packed, scale = pack_int4_like_fake_quant(w)
+    launches = int4_matmul.launches
+    got = int4_matmul(x, packed, scale)[:, :n]
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == launches + 1 and got.dtype == dtype
+    want = int4_matmul_plain(x, packed, scale)[:, :n]
+    err = ((got.float() - want.float()).abs()
+           / (want.float().abs() + 1.0)).max().item()
+    assert err < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
 def test_predictor_inference_runs_k2_and_matches_the_cpu(device):
     cfg = families.revised_config(40, convergence=0.2)
     assert cfg.attention == "hlsh"
@@ -218,3 +310,29 @@ def test_predictor_inference_runs_k2_and_matches_the_cpu(device):
         got = model.to(device)(x.to(device)).cpu()
     assert hlsh_attention.launches == launches + 1
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("family,quantize,kernel", [
+    ("transformer", False, flash_attention),
+    ("simplified", True, int4_matmul)])
+def test_predictor_inference_runs_k3_k4_and_matches_the_cpu(
+        device, family, quantize, kernel):
+    """The Transformer family's inference launches K4 (one per layer) and
+    the quantized simplified predictor's launches K3 (one per weight
+    product), both agreeing with the same model's CPU inference."""
+    cfg = families.family_config(family, 40, convergence=0.2,
+                                 quantize=quantize)
+    model = Predictor(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(np.stack(
+        [rng.integers(0, FEATURE_BUCKETS[f], (256, cfg.seq_len))
+         for f in cfg.features], -1))
+    with torch.no_grad():
+        want = model(x)
+        launches = kernel.launches
+        got = model.to(device)(x.to(device)).cpu()
+    assert kernel.launches == launches + (2 if family == "transformer"
+                                          else 6)
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
+    if not quantize:
+        assert (got - want).abs().max().item() <= 1e-4

@@ -50,7 +50,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert int(count) >= 33
     assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
             "repro_torch.uvm.golden", "repro_torch.kernels.lane_replay",
-            "repro_torch.uvm.backends.cuda_backend"} <= set(names.split())
+            "repro_torch.uvm.backends.cuda_backend",
+            "repro_torch.uvm.adaptive", "repro_torch.kernels.int4_matmul",
+            "repro_torch.kernels.flash_attention"} <= set(names.split())
 
 
 _FORBIDDEN = re.compile(

@@ -39,6 +39,8 @@ CONFIGS = {
     "bypass": lambda q: t_families.revised_config(N_CLASSES, 0.9, quantize=q),
     "transformer": lambda q: t_families.family_config(
         "transformer", N_CLASSES),
+    "transformer-local": lambda q: t_families.family_config(
+        "transformer-local", N_CLASSES),
 }
 
 
@@ -60,7 +62,8 @@ def _pair(cfg, key=1):
 
 @pytest.mark.parametrize("name,quantize", [
     ("hlsh", False), ("hlsh", True), ("bypass", False), ("bypass", True),
-    ("transformer", False)])   # the reference Transformer is fp32 only
+    ("transformer", False),    # the reference Transformer is fp32 only
+    ("transformer-local", False)])
 def test_logits_match_reference(name, quantize):
     cfg = CONFIGS[name](quantize)
     params, model = _pair(cfg)
@@ -96,10 +99,56 @@ def test_gradients_match_reference(name):
     # the Transformer's 200 x 800 feed-forward gradients sum 3840 products
     # per entry, in another order than XLA's: float32 rounding of such sums
     # reaches a few 1e-5; the slice's 12-dim predictor is held to 1e-5
-    atol = 5e-5 if name == "transformer" else 1e-5
+    atol = 5e-5 if name.startswith("transformer") else 1e-5
     for n, g in zip(names, grads):
         g = np.zeros_like(want[n]) if g is None else g.numpy()
         np.testing.assert_allclose(g, want[n], atol=atol, err_msg=n)
+
+
+#: the kernel wrapper each configuration's inference must reach, and how
+#: often per forward pass: the quantized simplified predictor's weight
+#: products (wq, wv, wo, w1, w2 and the head under HLSH; w1, w2 and the head
+#: under the bypass), the Transformer's full attention (one per layer);
+#: local attention has no kernel in the reference and none here
+ROUTES = {
+    ("hlsh", True): {"int4_matmul": 6, "hlsh_attention": 1},
+    ("bypass", True): {"int4_matmul": 3},
+    ("hlsh", False): {"hlsh_attention": 1},
+    ("transformer", False): {"flash_attention": 2},
+    ("transformer-local", False): {},
+}
+
+
+@pytest.mark.parametrize("name,quantize", sorted(ROUTES))
+def test_inference_goes_through_the_kernel_wrappers(monkeypatch, name,
+                                                    quantize):
+    """At inference (autograd off) the layers call the kernel wrappers (the
+    plain versions on these CPU tensors, the kernels on CUDA ones) and
+    compute the reference's function; with autograd on they call none."""
+    cfg = CONFIGS[name](quantize)
+    params, model = _pair(cfg, key=3)
+    calls = {}
+    for wrapper in ("int4_matmul", "hlsh_attention", "flash_attention"):
+        def counted(*a, _fn=getattr(t_ops, wrapper), _name=wrapper, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(t_ops, wrapper, counted)
+    x = _inputs(cfg, 256, seed=9)
+    with torch.no_grad():
+        got = model(torch.as_tensor(x)).numpy()
+    assert calls == ROUTES[(name, quantize)]
+    want = np.asarray(jax.jit(lambda p, xb: j_model.apply(cfg, p, xb))(
+        params, jnp.asarray(x)))
+    if quantize:
+        # (x @ codes) * s rounds once more than x @ fake_quant(w): the
+        # activations' unit grid can flip at a .5 boundary, so the quantized
+        # bar is top-1 agreement, as for the fake-quant path above
+        assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    calls.clear()
+    model(torch.as_tensor(x))
+    assert calls == {}
 
 
 def test_hlsh_draws_file_is_jax_draws():

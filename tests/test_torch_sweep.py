@@ -1,9 +1,9 @@
 """The port's sweep entry point and prediction cache: the cells of all five
-prefetchers under the three eviction policies, on benchmark, serve and
-multi-tenant traces, expand, run, equal the legacy engine and write rows
-with the reference's columns; cells the port cannot run (yet) raise, naming
-why; prediction arrays are keyed apart from the JAX package's and stored
-with a checksum."""
+prefetchers under the three eviction policies and the adaptive
+pseudo-policy, on benchmark, serve and multi-tenant traces, expand, run,
+equal the legacy engine and write rows with the reference's columns; cells
+the port cannot run (yet) raise, naming why; prediction arrays are keyed
+apart from the JAX package's and stored with a checksum."""
 import csv
 import os
 import warnings
@@ -16,7 +16,7 @@ pytest.importorskip("torch")
 from repro.uvm import predcache as ref_predcache
 from repro.uvm import sweep as ref_sweep
 from repro_torch.core.service import PredictorService
-from repro_torch.uvm import predcache, sweep
+from repro_torch.uvm import adaptive, predcache, sweep
 from repro_torch.uvm.simulator import UVMSimulator
 
 
@@ -42,13 +42,28 @@ def test_expand_grid_order():
     assert all(c.service_steps == 7 and c.backend == "cuda" for c in cells)
 
 
+def test_expand_grid_is_the_reference_grid_with_families_and_splits():
+    kw = dict(device_fracs=[None, 0.5], evictions=["lru", "adaptive"],
+              model_families=["simplified", "transformer"],
+              capacity_splits=["shared", "0.4/0.4"])
+    mine = [c.to_dict() for c in sweep.expand_grid(
+        ["ATAX+Pathfinder"], ["learned"], **kw)]
+    ref = [c.to_dict() for c in ref_sweep.expand_grid(
+        ["ATAX+Pathfinder"], ["learned"], **kw)]
+    assert len(mine) == len(ref) == 16
+    assert all(c.pop("backend") == "cuda" for c in mine)
+    assert all(c.pop("backend") == "auto" for c in ref)
+    assert mine == ref
+
+
 @pytest.mark.parametrize("change,match", [
     pytest.param({"bench": "ServeDecode", "window": None}, None,
                  id="change0-serve scenarios with step clocks are a later "
                  "slice"),
     ({"prefetcher": "bogus"}, "unknown prefetcher 'bogus'"),
     ({"model_family": "bogus"}, "unknown model family 'bogus'"),
-    ({"eviction": "adaptive"}, "eviction 'adaptive'"),
+    pytest.param({"eviction": "adaptive"}, None,
+                 id="change3-eviction 'adaptive'"),
     pytest.param({"bench": "ATAX+Pathfinder", "capacity_split": "0.5/0.5"},
                  None, id="change4-later slice"),
     ({"capacity_split": "0.5/0.5"}, "capacity splits"),
@@ -56,9 +71,9 @@ def test_expand_grid_order():
 ])
 def test_cells_outside_the_slice_raise(change, match):
     """Cells the port refuses raise, naming why (a quota split needs a
-    multi-tenant bench); serve and multi-tenant cells run, and their rows
-    equal the legacy engine (case ids are kept stable across releases of
-    the port)."""
+    multi-tenant bench); serve, multi-tenant and adaptive cells run, and
+    their rows equal the legacy engine (case ids are kept stable across
+    releases of the port)."""
     cell = sweep.SweepCell(**{"bench": "ATAX", "prefetcher": "none",
                               "scale": 0.1, "device_frac": 0.5,
                               "eviction": "hotcold", **change})
@@ -75,7 +90,11 @@ def test_cells_outside_the_slice_raise(change, match):
         assert row[f] == getattr(want, f), f
     assert row["cycles"] == pytest.approx(want.cycles, rel=1e-6)
     assert row["pages_evicted"] > 0
-    if cell.capacity_split is None:
+    if cell.eviction == "adaptive":
+        # the row records the policy the probe chose, the one that replayed
+        assert row["eviction"] == config.eviction == adaptive.probed(
+            trace, row["device_pages"], "none")[0]
+    elif cell.capacity_split is None:
         assert row["slo_source"] == "kernel"
         assert row["decode_lat_p50_us"] <= row["decode_lat_p99_us"]
     else:
@@ -154,7 +173,30 @@ def test_sweep_cli_evictions(tmp_path, capsys):
     assert "2DCONV,tree,0.5000,random,cuda" in out
     assert "2DCONV,tree,0.5000,hotcold,cuda" in out
     with pytest.raises(SystemExit):
-        sweep.main(["--evictions", "adaptive", "--device", "cpu"])
+        sweep.main(["--evictions", "fifo", "--device", "cpu"])
+
+
+def test_sweep_cli_adaptive_families_and_splits(capsys):
+    """``--evictions adaptive`` resolves per cell, ``--model-families``
+    crosses the learned cells with the families, ``--capacity-splits``
+    gives multi-tenant cells quotas and is refused on single-tenant
+    benches, as in the reference's CLI."""
+    sweep.main(["--benches", "ATAX", "--prefetchers", "learned",
+                "--model-families", "simplified,transformer", "--steps", "2",
+                "--scales", "0.25", "--device-fracs", "0.5",
+                "--evictions", "adaptive", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "4 cells" in out and ",adaptive," not in out
+    sweep.main(["--benches", "ATAX+Pathfinder", "--prefetchers", "none",
+                "--scales", "0.1", "--device-fracs", "0.5",
+                "--capacity-splits", "shared", "--device", "cpu"])
+    assert "2 cells" in capsys.readouterr().out
+    for bad in (["--capacity-splits", "0.5/0.5"],
+                ["--benches", "ATAX+Pathfinder", "--capacity-splits",
+                 "0.7/0.7"],
+                ["--model-families", "bogus"]):
+        with pytest.raises(SystemExit):
+            sweep.main(["--benches", "ATAX", "--device", "cpu", *bad])
 
 
 def test_predictions_key_has_the_torch_tag(trace):
