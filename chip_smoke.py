@@ -17,7 +17,8 @@ card:
    variant (maximum difference 0), with both timed;
 4. K2 (HLSH attention, float32 and bf16), K3 (int4 matmul) and K4 (flash
    attention) against their plain versions, at the reference's test shapes
-   and types and at the predictor's shapes;
+   and types, at the predictor's shapes and at the edges of K3's variants
+   and K4's tilings;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
    served on the card (the quantized simplified predictor's weight products
@@ -59,7 +60,10 @@ card:
     quota specialisation), K1's per-eviction cost against the scanned
     span, K1 against its plain version on the main path's learned batch and
     on the tables' tree batch, K2 (float32 and bf16), K3 and K4 at the
-    predictor's shapes, then the ``kernels`` line and the result line.
+    predictor's shapes, each per call through its wrapper and as device
+    time per launch (a CUDA graph of 20 launches; the profiler where a
+    capture fails), in turns with its PyTorch call and its plain version,
+    then the ``kernels`` line and the result line.
 
 Each of the seven driven paths (5, 6, 7, 10, 11, 12, 13) zeroes the launch
 counters just before it and reads them just after.  The legacy engine's
@@ -75,6 +79,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import math
 import multiprocessing
@@ -135,6 +140,20 @@ K3_REF_SHAPES = ((128, 128, 256), (128, 256, 256), (256, 128, 512))
 #: and 48) and its classification head at the largest class count and at an
 #: odd one (padded by one zero column)
 K4_PATH_SHAPE = (4096, 4, 4, 30, 30, 50)
+#: edges of K3's variants (M = 1000, no tile multiple: odd K, K and N past
+#: the narrow limit, rows of out no whole 16-byte chunks, a wide head), with
+#: the path's shapes every compiled body in both types, and of K4's tilings
+#: (S around a warp's 32 rows, D around its 64, grouped kv heads with Sq >
+#: Sk)
+K3_EDGE_CASES = tuple(((1000, k, n), "float32") for k, n in (
+    (13, 12), (64, 64), (65, 12), (12, 66), (12, 130), (32, 20000),
+    (48, 32), (12, 24), (48, 48), (16, 48))) + tuple(
+    ((1000, k, n), "bfloat16") for k, n in (
+        (48, 48), (16, 20000), (12, 12), (16, 16), (48, 32), (16, 32),
+        (32, 48), (64, 64)))
+K4_EDGE_SHAPES = ((2, 5, 5, 1, 1, 1), (2, 5, 5, 31, 31, 49),
+                  (2, 5, 5, 33, 33, 64), (2, 5, 5, 129, 129, 100),
+                  (2, 5, 5, 29, 29, 128), (2, 4, 2, 33, 29, 50))
 K3_PATH_SHAPES = ((4096 * 30, 12, 12), (4096 * 30, 12, 48),
                   (4096 * 30, 48, 12), (4096, 12, 20000), (4096, 12, 19999))
 #: the Transformer family's learned cells (phase 13)
@@ -146,6 +165,9 @@ INFER_BENCH = "NW"
 #: tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+#: bytes that timed calls touch before one touches the same memory again:
+#: four times the H100's 50 MB L2, so each call reads and writes HBM
+ROTATE_BYTES = 200e6
 INT_FIELDS = ("hits", "late", "faults", "prefetch_issued", "prefetch_used",
               "pages_migrated", "pages_evicted")
 
@@ -224,6 +246,112 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5):
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, the graph replayed ``replays`` times between CUDA
+    events, so no host work sits between the launches.  None if the
+    capture fails."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except Exception as exc:      # a launch that cannot be captured
+        torch.cuda.synchronize()
+        print(f"chip_smoke: CUDA graph capture failed ({type(exc).__name__}:"
+              f" {exc}); timing with the profiler", flush=True)
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def profiled_ms(fn, reps: int):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
+    device time of every kernel the ``reps`` calls ran.  None if the trace
+    shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def device_ms(fn, reps: int = 20):
+    """(device milliseconds per call, method): a CUDA graph of ``reps``
+    calls, else the profiler's device time, else (None, "not measured")."""
+    ms = graph_ms(fn, reps)
+    if ms is not None:
+        return ms, "graph"
+    ms = profiled_ms(fn, reps)
+    return (ms, "profiler") if ms is not None else (None, "not measured")
+
+
+def copies_of(inputs, call_bytes: float):
+    """``inputs`` and enough clones of them that calls taking them in turn
+    touch ``ROTATE_BYTES`` (each call ``call_bytes``) before they come back
+    to the same copy."""
+    n = max(1, math.ceil(ROTATE_BYTES / call_bytes))
+    return [inputs] + [tuple(t.clone() for t in inputs)
+                       for _ in range(n - 1)]
+
+
+def rotating(fn, copies):
+    """A call of ``fn`` on each of ``copies`` in turn, so that every call
+    reads inputs and writes an output that are not in L2, as on a path that
+    moves on through its data.  Each result is held until its copy comes
+    round again, so that outputs do not share memory either (within a CUDA
+    graph's capture as well)."""
+    held = [None] * len(copies)
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % len(copies)
+        held[i] = fn(*copies[i])
+    # one round and one call more, so that the allocator already holds
+    # every output (and the one being replaced) when the timing starts
+    for _ in range(len(copies) + 1):
+        call()
+    return call
+
+
+def timed_in_turns(fns, reps: int = 20):
+    """Per-call and device milliseconds of each of ``fns`` (name -> call),
+    timed in turns (forward, then backward: a, b, c, c, b, a), each the
+    mean of its two turns: {name: {"ms", "device_ms", "method"}}."""
+    names = list(fns)
+    runs = {n: {"ms": [], "device_ms": [], "method": set()} for n in names}
+    for n in names + names[::-1]:
+        runs[n]["ms"].append(cuda_ms(fns[n], reps))
+        ms, method = device_ms(fns[n], reps)
+        runs[n]["device_ms"].append(ms)
+        runs[n]["method"].add(method)
+    out = {}
+    for n, r in runs.items():
+        dev = None if None in r["device_ms"] else sum(r["device_ms"]) / 2
+        out[n] = {"ms": sum(r["ms"]) / 2, "device_ms": dev,
+                  "method": "/".join(sorted(r["method"]))}
+    return out
 
 
 def k1_bound_ms(batch) -> float:
@@ -375,11 +503,13 @@ def smoke(args, pool) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import lane_replay as k1
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_geometry)
     from repro_torch.kernels.hlsh_attention import (hlsh_attention,
                                                     hlsh_attention_plain)
     from repro_torch.kernels.int4_matmul import (int4_matmul,
                                                  int4_matmul_plain,
+                                                 VARIANTS, int4_variant,
                                                  unpack_int4)
     from repro_torch.kernels.lane_replay import lane_replay
     from repro_torch.uvm import adaptive, paper_tables, sweep
@@ -570,7 +700,8 @@ def smoke(args, pool) -> int:
     k4_cases = [(shape, causal, dt) for shape in K4_REF_SHAPES
                 for causal in (False, True)
                 for dt in (torch.float32, torch.bfloat16)]
-    k4_cases += [(K4_PATH_SHAPE, causal, torch.float32)
+    k4_cases += [(shape, causal, torch.float32)
+                 for shape in (K4_PATH_SHAPE,) + K4_EDGE_SHAPES
                  for causal in (False, True)]
     for shape, causal, dt in k4_cases:
         err, _ = k4_against_plain(rng, shape, causal, dt)
@@ -602,6 +733,14 @@ def smoke(args, pool) -> int:
     k3_cases = [(shape, dt, False) for shape in K3_REF_SHAPES
                 for dt in (torch.float32, torch.bfloat16)]
     k3_cases += [(shape, torch.float32, True) for shape in K3_PATH_SHAPES]
+    k3_cases += [(shape, getattr(torch, dt), False)
+                 for shape, dt in K3_EDGE_CASES]
+    reached = {(int4_variant(m, kd, n + n % 2, dt), dt)
+               for (m, kd, n), dt, _ in k3_cases}
+    missing = [(v, str(dt)) for dt in (torch.float32, torch.bfloat16)
+               for v in VARIANTS if (v, dt) not in reached
+               and (v, dt) != ("wide32", torch.bfloat16)]
+    check(not missing, f"K3's cases reach no case of the bodies {missing}")
     for (m, kd, n), dt, packer in k3_cases:
         err, abs_err, _ = k3_against_plain(rng, m, kd, n, dt, packer)
         name = str(dt).split(".")[1]
@@ -609,6 +748,31 @@ def smoke(args, pool) -> int:
               f"error {err} (limit {K3_RTOL[name]})")
         k3_err[name] = max(k3_err[name], err)
         k3_abs = max(k3_abs, abs_err)
+    # x one element into its storage (not 16-byte aligned): the narrow
+    # variant's shape takes the general one
+    base = cuda_randn(rng, (1000 * 12 + 1,), torch.float32)
+    x_off = base[1:].view(1000, 12)
+    w_off = torch.tensor(rng.integers(0, 256, (12, 6)), dtype=torch.uint8,
+                         device="cuda")
+    check(int4_variant(1000, 12, 12, torch.float32, x_off.data_ptr())
+          == "general", "K3 on an unaligned x does not take the general "
+          "variant")
+    err = rel_err(int4_matmul(x_off, w_off, 0.03),
+                  int4_matmul_plain(x_off, w_off, 0.03))
+    check(err < K3_RTOL["float32"], f"K3 on an unaligned x: relative error "
+          f"{err}")
+    k3_err["float32"] = max(k3_err["float32"], err)
+    # bf16 heads of S x D = 1,500 (every other head's span unaligned),
+    # against the float32 plain version on the same inputs
+    for causal in (False, True):
+        _, qkv = k4_against_plain(rng, (3, 3, 3, 30, 30, 50), causal,
+                                  torch.bfloat16)
+        err = float((flash_attention(*qkv, causal=causal).float()
+                     - flash_attention_plain(*(t.float() for t in qkv),
+                                             causal=causal)).abs().max())
+        check(err <= K4_ATOL["bfloat16"], f"K4 bf16 (3,3,3,30,30,50) causal="
+              f"{causal}: max error {err} from the float32 plain version")
+        k4_err["bfloat16"] = max(k4_err["bfloat16"], err)
     torch.cuda.synchronize()
     print(f"phase 4: K2 matched its plain version, max error {k2_err:.3g} "
           f"(limit {K2_ATOL}), in bf16 {k2_bf16_err:.3g} (limit "
@@ -1232,6 +1396,8 @@ def smoke(args, pool) -> int:
     k1_err = max(k1_err, err)
     k1_args = k1_batch.kernel_args("cuda")
     k1_ms = cuda_ms(lambda: lane_replay(**k1_args), reps=3)
+    # one launch is about 0.15 s: the profiler's device time, no graph
+    k1_dev = profiled_ms(lambda: lane_replay(**k1_args), reps=1)
     k1_bound = k1_bound_ms(k1_batch)
     n_acc = int(k1_batch.iparams[:, 0].sum())
     # K1 on the tables' tree batch (11 scale-1.0 lanes, no evictions)
@@ -1259,70 +1425,99 @@ def smoke(args, pool) -> int:
           f"on the tables' tree batch ({len(tidx)} lanes, "
           f"{tv['tables_accesses']} accesses), equal to its plain version "
           f"({tv['tables_plain_ms']:.1f} ms on the host)", flush=True)
-    # K2 at the predictor's shape; the yardstick is one
-    # scaled_dot_product_attention call on pre-masked q/k (the port never
-    # calls it)
+    # K2, K3 and K4 at the predictor's shapes: per call through the wrapper
+    # (what a path pays) and device time per launch (a CUDA graph of the
+    # launches), the kernel, its PyTorch call and its plain version in
+    # turns; K2 and K3 rotate through copies of their inputs so that no
+    # call finds its data in L2 (one K4 call already moves 393 MB)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def timing_fields(t, bound_ms):
+        dev = t["kernel"]["device_ms"]
+        return {"ms": t["kernel"]["ms"], "device_ms": dev,
+                "plain_ms": t["plain"]["ms"],
+                "plain_device_ms": t["plain"]["device_ms"],
+                "library_ms": t["library"]["ms"],
+                "library_device_ms": t["library"]["device_ms"],
+                "share_of_bound": None if dev is None else bound_ms / dev,
+                "timing": t["kernel"]["method"]}
+
+    # K2: the yardstick is one scaled_dot_product_attention call on
+    # pre-masked q/k (the port never calls it)
     q, v, keep = k2_main
     b, n, d = q.shape
-    k2_ms = cuda_ms(lambda: hlsh_attention(q, q, v, keep), reps=50)
-    k2_plain_ms = cuda_ms(lambda: hlsh_attention_plain(q, q, v, keep),
-                          reps=50)
     qm = (q * keep[..., None]).contiguous()
-    k2_lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qm, qm, v), reps=50)
+    k2_bytes = 4 * b * n * d * 4 + b * n * 4
+
+    def k2_calls(copies):
+        """K2, its PyTorch call and its plain version over ``copies`` of
+        (q, v, keep, q pre-masked)."""
+        return {
+            "kernel": rotating(lambda q, v, kp, qm: hlsh_attention(
+                q, q, v, kp), copies),
+            "library": rotating(lambda q, v, kp, qm: sdpa(qm, qm, v),
+                                copies),
+            "plain": rotating(lambda q, v, kp, qm: hlsh_attention_plain(
+                q, q, v, kp), copies)}
+
+    k2_t = timed_in_turns(k2_calls(copies_of((q, v, keep, qm), k2_bytes)),
+                          reps=50)
     tile = 32
     n_tiles = math.ceil(n / tile)
     kept_tiles = sum(int((keep[:, t * tile:(t + 1) * tile] > 0).any(1).sum())
                      for t in range(n_tiles))
     k2_flops = 4 * n * min(tile, n) * d * kept_tiles
-    k2_bytes = 4 * b * n * d * 4 + b * n * 4
     k2_bound_bytes = k2_bytes / HBM_BYTES_S * 1e3
     k2_bound_ops = k2_flops / F32_FLOPS * 1e3
+    k2_bound = max(k2_bound_bytes, k2_bound_ops)
     # K2 in bf16 at the same shape and keep mask
     qb, vb, keepb = (t.to(torch.bfloat16) for t in (q, v, keep))
     qmb = (qb * keepb[..., None]).contiguous()
-    k2_bf16 = {
-        "dtype": "bfloat16", "shape": [b, n, d],
-        "max_abs_err": k2_bf16_err,
-        "ms": cuda_ms(lambda: hlsh_attention(qb, qb, vb, keepb), reps=50),
-        "plain_ms": cuda_ms(lambda: hlsh_attention_plain(qb, qb, vb, keepb),
-                            reps=50),
-        "library_ms": cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qmb, qmb, vb), reps=50)}
+    k2b_t = timed_in_turns(
+        k2_calls(copies_of((qb, vb, keepb, qmb), k2_bytes / 2)), reps=50)
     b2_bytes = (4 * b * n * d + b * n) * 2 / HBM_BYTES_S * 1e3
-    k2_bf16.update(bound_ms=max(b2_bytes, k2_bound_ops),
-                   bound_by="bytes" if b2_bytes >= k2_bound_ops
-                   else "operations")
+    k2b_bound = max(b2_bytes, k2_bound_ops)
+    k2_bf16 = {"dtype": "bfloat16", "shape": [b, n, d],
+               "max_abs_err": k2_bf16_err, "variant": "bfloat16",
+               "bound_ms": k2b_bound,
+               "bound_by": "bytes" if b2_bytes >= k2_bound_ops
+               else "operations",
+               **timing_fields(k2b_t, k2b_bound)}
     # K4 at the Transformer family's shape; the yardstick is one
     # scaled_dot_product_attention call on the same (B, H, S, D) tensors
     fb, fh, _, fs, _, fd = K4_PATH_SHAPE
     _, (fq, fk, fv) = k4_against_plain(rng, K4_PATH_SHAPE, False,
                                         torch.float32)
-    k4_ms = cuda_ms(lambda: flash_attention(fq, fk, fv), reps=20)
-    k4_plain_ms = cuda_ms(lambda: flash_attention_plain(fq, fk, fv), reps=20)
-    k4_lib_ms = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(fq, fk, fv),
-        reps=20)
+    k4_t = timed_in_turns({
+        "kernel": lambda: flash_attention(fq, fk, fv),
+        "library": lambda: sdpa(fq, fk, fv),
+        "plain": lambda: flash_attention_plain(fq, fk, fv)})
     k4_bytes = 4 * fb * fh * fs * fd * 4 / HBM_BYTES_S * 1e3
     k4_ops = 4 * fb * fh * fs * fs * fd / F32_FLOPS * 1e3
-    # K3 at the classification head's shape (and, launch-bound, the layer
-    # products); the yardstick is one torch.matmul on the dequantized weight
+    k4_bound = max(k4_bytes, k4_ops)
+    k4_fields = timing_fields(k4_t, k4_bound)
+    k4_variant = flash_geometry(fb * fh, fs, fs, fd).name()
+    # K3 at the classification head's shape and the layer products; the
+    # yardstick is one torch.matmul on the dequantized weight
     k3_times = []
     for m, kd, n3 in ((4096, 12, 20000),) + K3_PATH_SHAPES[:3]:
         _, _, (x3, w3, s3) = k3_against_plain(rng, m, kd, n3,
                                               torch.float32, True)
         w_deq = unpack_int4(w3).float() * s3
-        b3 = (m * kd * 4 + w3.numel() + m * n3 * 4 + 4) / HBM_BYTES_S * 1e3
+        by3 = m * kd * 4 + w3.numel() + m * n3 * 4 + 4
+        b3 = by3 / HBM_BYTES_S * 1e3
         o3 = 2 * m * kd * n3 / F32_FLOPS * 1e3
+        x3_in = copies_of((x3,), by3)
+        t3 = timed_in_turns({
+            "kernel": rotating(lambda x: int4_matmul(x, w3, s3), x3_in),
+            "library": rotating(lambda x: torch.matmul(x, w_deq), x3_in),
+            "plain": rotating(lambda x: int4_matmul_plain(x, w3, s3), x3_in)})
         k3_times.append({
             "shape": [m, kd, n3],
-            "ms": cuda_ms(lambda: int4_matmul(x3, w3, s3), reps=20),
-            "plain_ms": cuda_ms(lambda: int4_matmul_plain(x3, w3, s3),
-                                reps=20),
-            "library_ms": cuda_ms(lambda: torch.matmul(x3, w_deq), reps=20),
+            "variant": int4_variant(m, kd, n3, x3.dtype, x3.data_ptr()),
             "bound_ms": max(b3, o3),
-            "bound_by": "bytes" if b3 >= o3 else "operations"})
+            "bound_by": "bytes" if b3 >= o3 else "operations",
+            **timing_fields(t3, max(b3, o3))})
     k3_head = k3_times[0]
     # K3 on its path: one bench's quantized simplified inference
     # (predict_trace, HLSH: six weight products a batch) with the products
@@ -1358,8 +1553,12 @@ def smoke(args, pool) -> int:
          "replaces": K1_REPLACES,
          "launches": sum(by_path("lane_replay").values()),
          "launches_by_path": by_path("lane_replay"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": plain_s * 1e3,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
+         "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_dev,
+         "timing": "profiler" if k1_dev is not None else "not measured",
+         "plain_ms": plain_s * 1e3, "bound_ms": k1_bound,
+         "bound_by": "bytes", "library_ms": None, "library_device_ms": None,
+         "share_of_bound": None if k1_dev is None else k1_bound / k1_dev,
+         "variant": "learned/lru",
          "variants": [dict(v, bound_by="bytes", library_ms=None)
                       for v in variants.values()],
          "scan_vs_span": scan_span},
@@ -1367,19 +1566,17 @@ def smoke(args, pool) -> int:
          "replaces": K2_REPLACES,
          "launches": sum(by_path("hlsh_attention").values()),
          "launches_by_path": by_path("hlsh_attention"),
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": max(k2_bound_bytes, k2_bound_ops),
+         "max_abs_err": k2_err, "shape": [b, n, d], "variant": "float32",
+         "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
-         else "operations", "library_ms": k2_lib_ms,
+         else "operations",
+         **timing_fields(k2_t, k2_bound),
          "variants": [k2_bf16]},
         {"name": "int4_matmul", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES,
          "launches": sum(by_path("int4_matmul").values()),
          "launches_by_path": by_path("int4_matmul"),
-         "max_abs_err": k3_abs, "max_rel_err": k3_err,
-         "ms": k3_head["ms"], "plain_ms": k3_head["plain_ms"],
-         "bound_ms": k3_head["bound_ms"], "bound_by": k3_head["bound_by"],
-         "library_ms": k3_head["library_ms"], "shape": k3_head["shape"],
+         "max_abs_err": k3_abs, "max_rel_err": k3_err, **k3_head,
          "variants": k3_times[1:],
          "inference_s": dict(infer_s, bench=INFER_BENCH,
                              predictions_equal=agree)},
@@ -1388,32 +1585,39 @@ def smoke(args, pool) -> int:
          "launches": sum(by_path("flash_attention").values()),
          "launches_by_path": by_path("flash_attention"),
          "max_abs_err": max(k4_err.values()), "max_abs_err_by_dtype": k4_err,
-         "bf16_path_shape_err": k4_bf16_path,
-         "ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": max(k4_bytes, k4_ops),
+         "bf16_path_shape_err": k4_bf16_path, "shape": list(K4_PATH_SHAPE),
+         "variant": k4_variant, "bound_ms": k4_bound,
          "bound_by": "bytes" if k4_bytes >= k4_ops else "operations",
-         "library_ms": k4_lib_ms, "shape": list(K4_PATH_SHAPE)},
+         **k4_fields},
     ]
-    print(f"phase 14 {card}: K1 {k1_ms:.3f} ms per launch on the main path's "
-          f"learned batch ({len(k1_batch.pages)} lanes padded, {n_acc} "
-          f"accesses; plain version {plain_s * 1e3:.1f} ms on the host); K2 "
-          f"{k2_ms:.4f} ms at ({b},{n},{d}) (plain {k2_plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {k2_lib_ms:.4f} ms), in bf16 "
-          f"{k2_bf16['ms']:.4f} ms (plain {k2_bf16['plain_ms']:.4f} ms, "
-          f"scaled_dot_product_attention {k2_bf16['library_ms']:.4f} ms, "
-          f"bound {k2_bf16['bound_ms']:.4f} ms)", flush=True)
-    print(f"phase 14 {card}: K4 {k4_ms:.4f} ms per launch at "
-          f"{K4_PATH_SHAPE} float32 (plain {k4_plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {k4_lib_ms:.4f} ms, bound "
-          f"{max(k4_bytes, k4_ops):.4f} ms by "
-          f"{kernels[3]['bound_by']}); launches by path "
-          f"{by_path('flash_attention')}", flush=True)
+
+    def times(t):
+        """One kernel's times: per call / device per launch."""
+        def ms(x):
+            return "not measured" if x is None else f"{x:.4f}"
+        share = ("not measured" if t["share_of_bound"] is None
+                 else f"{100 * t['share_of_bound']:.0f}%")
+        return (f"{ms(t['ms'])} / {ms(t['device_ms'])} ms per call / device "
+                f"({t['timing']}), plain "
+                f"{ms(t['plain_ms'])} / {ms(t['plain_device_ms'])}, library "
+                f"{ms(t['library_ms'])} / {ms(t['library_device_ms'])}, bound "
+                f"{t['bound_ms']:.4f} by {t['bound_by']} ({share} of it)")
+
+    k1_dev_txt = "not measured" if k1_dev is None else f"{k1_dev:.3f}"
+    print(f"phase 14 {card}: K1 {k1_ms:.3f} ms per launch ({k1_dev_txt} ms "
+          f"device) on the main path's learned batch "
+          f"({len(k1_batch.pages)} lanes padded, {n_acc} accesses; plain "
+          f"version {plain_s * 1e3:.1f} ms on the host)", flush=True)
+    print(f"phase 14 {card}: K2 at ({b},{n},{d}) float32 {times(kernels[1])}"
+          f"; bf16 {times(k2_bf16)} (library: scaled_dot_product_attention)",
+          flush=True)
+    print(f"phase 14 {card}: K4 at {K4_PATH_SHAPE} float32 [{k4_variant}] "
+          f"{times(kernels[3])} (library: scaled_dot_product_attention); "
+          f"launches by path {by_path('flash_attention')}", flush=True)
     for t in k3_times:
-        print(f"phase 14 {card}: K3 {t['ms']:.4f} ms per launch at "
-              f"{tuple(t['shape'])} float32 (plain {t['plain_ms']:.4f} ms, "
-              f"torch.matmul on the dequantized weight "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
-              f"{t['bound_by']})", flush=True)
+        print(f"phase 14 {card}: K3 at {tuple(t['shape'])} float32 "
+              f"[{t['variant']}] {times(t)} (library: torch.matmul on the "
+              "dequantized weight)", flush=True)
     print(f"phase 14: K3 launches by path {by_path('int4_matmul')}; K2 "
           f"{by_path('hlsh_attention')}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

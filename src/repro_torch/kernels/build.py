@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from typing import Dict, List, Sequence
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))), "build", "repro_torch")
@@ -93,3 +95,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.error_string.argtypes = [ctypes.c_int]
         msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+#: PyTorch's raw handle of a device's current stream (what its own kernel
+#: launchers read), where the build has it: it spares the Python stream
+#: object that ``torch.cuda.current_stream(device)`` builds on every call
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launch."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream

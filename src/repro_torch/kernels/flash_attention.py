@@ -6,12 +6,15 @@ Replaces the reference's Pallas kernel
 family's full softmax attention runs it at inference on the card (heads as
 ``(B, H, S, D)``, ``causal=False``, ``Hkv = H``).  The reference has no
 backward for it, so neither has the port: training keeps the differentiable
-``core.attention.full_attention``.
+``core.attention.full_attention``.  :func:`flash_geometry` picks the
+kernel's tiling from the shape.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +23,33 @@ from repro_torch.kernels import build
 MAX_D = 128
 #: element types K4 takes, with their code in the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: K4's tilings, in the order of their code in the C entry point
+TILINGS = ("general", "warp")
+#: the warp-per-head tiling: largest Sq and Sk, largest D, heads per block
+WARP_ROWS = 32
+WARP_MAX_D = 64
+WARP_HEADS = 2
+
+
+class FlashGeometry(NamedTuple):
+    """K4's tiling (one of ``TILINGS``) and the heads of a block."""
+    tiling: str
+    heads: int
+
+    def name(self) -> str:
+        if self.tiling == "warp":
+            return f"a warp per head, {self.heads} heads/block"
+        return "general: 32 query rows a block, keys in tiles of 32"
+
+
+@functools.lru_cache(maxsize=None)
+def flash_geometry(bh: int, sq: int, sk: int, d: int) -> FlashGeometry:
+    """The tiling of ``bh`` heads of ``sq`` queries over ``sk`` keys of dim
+    ``d``: a warp per head where the head's queries and keys fit one warp's
+    register tiles, else the general one (a head's query tile a block)."""
+    if sq <= WARP_ROWS and sk <= WARP_ROWS and d <= WARP_MAX_D:
+        return FlashGeometry("warp", min(bh, WARP_HEADS))
+    return FlashGeometry("general", 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,6 +68,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits.float(), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), vx)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point, bound once."""
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    return lib, fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,15 +111,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 < d <= MAX_D or sk < 1:
         raise ValueError(f"flash_attention: head dim {d} not in 1..{MAX_D} "
                          f"or no keys (Sk = {sk})")
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
+    geo = flash_geometry(b * h, sq, sk, d)
+    lib, fn = _entry()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-             hkv, sq, sk, d, int(causal), DTYPES[q.dtype], stream)
+             hkv, sq, sk, d, int(causal), DTYPES[q.dtype],
+             TILINGS.index(geo.tiling), geo.heads,
+             build.stream_handle(q.device))
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out

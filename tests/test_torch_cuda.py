@@ -1,11 +1,12 @@
 """The port's kernels on the card: K1 replays the 77 golden cells of every
 lane family and eviction policy exactly (the hard-quota cells included) and
 matches its plain version, its step-clock and quota lanes equal the legacy
-engine, the paper's Table 10/11 tree rows equal the legacy engine's, K2
-matches its plain version, and the predictor's inference goes through K2.  Every test
-here needs a CUDA device and nvcc (a CUDA kernel has no CPU mode) and skips
-without one.  The module imports neither jax nor the reference package, so
-it runs where only PyTorch is installed:
+engine, the paper's Table 10/11 tree rows equal the legacy engine's, K2-K4
+match their plain versions (K3 and K4 also at the edges of each of their
+variants and tilings), and the predictor's inference goes through K2-K4.
+Every test here needs a CUDA device and nvcc (a CUDA kernel has no CPU
+mode) and skips without one.  The module imports neither jax nor the
+reference package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -22,10 +23,12 @@ from repro_torch.core.model import Predictor
 from repro_torch.core.vocab import FEATURE_BUCKETS
 from repro_torch.core.quantize import pack_int4_like_fake_quant
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_geometry)
 from repro_torch.kernels.hlsh_attention import (hlsh_attention,
                                                 hlsh_attention_plain)
-from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_plain
+from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_plain,
+                                             int4_variant)
 from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, lane_replay,
                                              lane_replay_plain)
 from repro_torch.uvm import golden as G
@@ -242,6 +245,9 @@ def test_k4_matches_its_plain_version(device, shape, dtype, causal):
     q = torch.randn((b, h, sq, d), generator=g).to(device, dtype)
     k = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
     v = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
+    warp = max(sq, sk) <= 32 and d <= 64
+    assert flash_geometry(b * h, sq, sk, d).tiling == ("warp" if warp
+                                                       else "general")
     launches = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -294,6 +300,166 @@ def test_k3_matches_its_plain_version(device, m, k, n, dtype):
     err = ((got.float() - want.float()).abs()
            / (want.float().abs() + 1.0)).max().item()
     assert err < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+#: K3's edges: every K crossed with every N at M = 1000 (no multiple of a
+#: tile): K = 1, 13, 65 give rows of x that are no whole 16-byte chunks, K =
+#: 65 and N > 64 pass the narrow variant's limit, N = 66 and 130 are wide
+#: but take the general variant (rows of out no whole 16-byte chunks), N =
+#: 20000 is the head's
+K3_EDGE_K = (1, 12, 13, 48, 64, 65)
+K3_EDGE_N = (2, 12, 14, 48, 50, 66, 130, 20000)
+
+
+def _k3_case(device, m, k, n, dtype, seed):
+    """Random codes and the reference tests' scale 0.03 as a 0-d float32 on
+    the card, x of ``dtype``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(device, dtype)
+    packed = torch.randint(0, 256, (k, n // 2), generator=g,
+                           dtype=torch.uint8).to(device)
+    return x, packed, torch.tensor(0.03, device=device)
+
+
+def _k3_check(x, packed, scale, variant):
+    """K3 once on (x, packed, scale) in ``variant``, against its plain
+    version at the reference's tolerance."""
+    m, k = x.shape
+    n = 2 * packed.shape[1]
+    launches = int4_matmul.launches
+    got = int4_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == launches + 1 and got.dtype == x.dtype
+    assert int4_variant(m, k, n, x.dtype, x.data_ptr(),
+                        got.data_ptr()) == variant
+    want = int4_matmul_plain(x, packed, scale)
+    err = ((got.float() - want.float()).abs()
+           / (want.float().abs() + 1.0)).max().item()
+    assert err < (1e-4 if x.dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("k", K3_EDGE_K)
+@pytest.mark.parametrize("n", K3_EDGE_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_edge_shapes_match_its_plain_version(device, k, n, dtype):
+    m = 1000
+    x, packed, scale = _k3_case(device, m, k, n, dtype, k * n)
+    _k3_check(x, packed, scale, int4_variant(m, k, n, dtype, 0, 0))
+
+
+@pytest.mark.parametrize("k,n,dtype,body", [
+    (13, 12, torch.float32, "general"), (12, 12, torch.float32, "narrow16"),
+    (48, 32, torch.float32, "narrow32"), (12, 24, torch.float32, "narrow32x2"),
+    (48, 48, torch.float32, "narrow48"), (16, 48, torch.float32, "narrow48x2"),
+    (64, 64, torch.float32, "narrow64"), (12, 132, torch.float32, "wide16"),
+    (32, 68, torch.float32, "wide32"), (12, 12, torch.bfloat16, "general"),
+    (16, 16, torch.bfloat16, "narrow16"), (48, 32, torch.bfloat16, "narrow32"),
+    (16, 32, torch.bfloat16, "narrow32x2"),
+    (48, 48, torch.bfloat16, "narrow48"),
+    (32, 48, torch.bfloat16, "narrow48x2"),
+    (64, 64, torch.bfloat16, "narrow64"),
+    (16, 144, torch.bfloat16, "wide16"),
+    # more two-rows-a-thread tiles (x rows of at most 4 chunks, 16 < N <=
+    # 48, a tile of 256 rows)
+    (16, 32, torch.float32, "narrow32x2"), (24, 40, torch.bfloat16,
+                                            "narrow48x2")])
+def test_k3_every_body_matches_its_plain_version(device, k, n, dtype, body):
+    """Each compiled body of K3 in each type (the wide body of K <= 32 is
+    float32's only), at M = 1000 (no multiple of a tile)."""
+    x, packed, scale = _k3_case(device, 1000, k, n, dtype, k * n + 2)
+    _k3_check(x, packed, scale, body)
+
+
+@pytest.mark.parametrize("k,n,variant", [(12, 12, "general"),
+                                         (48, 48, "general"),
+                                         (12, 20000, "wide16")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_unaligned_x_matches_its_plain_version(device, k, n, variant,
+                                                  dtype):
+    """x sliced one element into its storage, so its pointer is not 16-byte
+    aligned: the narrow variant gives way to the general one (the wide one
+    reads x by scalars and keeps it)."""
+    m = 1000
+    x, packed, scale = _k3_case(device, m, k, n, dtype, k + n)
+    base = torch.empty(m * k + 1, dtype=dtype, device=device)
+    base[1:] = x.view(-1)
+    x = base[1:].view(m, k)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _k3_check(x, packed, scale, variant)
+
+
+#: K4's edges: S around a warp's 32 rows, D from 1 to 128 around the warp
+#: tiling's 64 and its float4 chunks (D = 32 is 8 chunks, 33 and 40 are 9
+#: and 10, 64 the 16 a lane's 4 x 4 output tile holds)
+K4_EDGE_S = (1, 29, 30, 31, 33, 129)
+K4_EDGE_D = (1, 32, 33, 40, 49, 50, 64, 100, 128)
+
+
+def _k4_check(device, shape, dtype, causal, seed, float32_plain=False):
+    """K4 once on random (B, H, Hkv, Sq, Sk, D) inputs against its plain
+    version (``float32_plain``: on float32 copies of the same inputs) at
+    the reference's tolerance."""
+    b, h, hkv, sq, sk, d = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=g).to(device, dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
+    warp = max(sq, sk) <= 32 and d <= 64
+    assert flash_geometry(b * h, sq, sk, d).tiling == ("warp" if warp
+                                                       else "general")
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1 and got.dtype == dtype
+    if float32_plain:
+        q, k, v = q.float(), k.float(), v.float()
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("s", K4_EDGE_S)
+@pytest.mark.parametrize("d", K4_EDGE_D)
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_edge_shapes_match_its_plain_version(device, s, d, causal):
+    _k4_check(device, (2, 5, 5, s, s, d), torch.float32, causal, s * d)
+
+
+@pytest.mark.parametrize("s", K4_EDGE_S)
+@pytest.mark.parametrize("d", K4_EDGE_D)
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_bf16_edge_shapes_match_the_float32_plain_version(device, s, d,
+                                                             causal):
+    """The same edges in bf16 (staged by 16-byte or, where a head's span is
+    unaligned, 4-byte loads), against the float32 plain version on the same
+    inputs."""
+    _k4_check(device, (2, 5, 5, s, s, d), torch.bfloat16, causal, s * d + 1,
+              float32_plain=True)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 2, 33, 33, 50), (1, 8, 1, 30, 30, 50),     # GQA
+    (2, 4, 2, 33, 29, 50), (1, 2, 1, 129, 31, 64),   # Sq > Sk
+    (3, 2, 2, 31, 1, 49), (1, 4, 4, 30, 129, 100)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_gqa_and_short_keys_match_its_plain_version(device, shape,
+                                                       causal, dtype):
+    """Grouped kv heads, and Sq > Sk (under the causal mask the first rows
+    see no key and are spread evenly over all Sk keys, as the reference's
+    oracle does); bf16 against the float32 plain version on the same
+    inputs."""
+    _k4_check(device, shape, dtype, causal, sum(shape),
+              float32_plain=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_bf16_unaligned_heads_match_the_float32_plain_version(device,
+                                                                 causal):
+    """bf16 at S x D = 1,500: a head is 3,000 bytes, so every other head's
+    span is not 16-byte aligned and is staged by 4-byte loads."""
+    _k4_check(device, (3, 3, 3, 30, 30, 50), torch.bfloat16, causal, 1500,
+              float32_plain=True)
 
 
 def test_predictor_inference_runs_k2_and_matches_the_cpu(device):

@@ -1,8 +1,9 @@
 """The port's K3 (int4 matmul) and K4 (flash attention) plain versions
 against the reference's Pallas kernels in interpret mode and its ``ref``
 oracles, at the reference's test shapes and types and at the predictor's
-shapes, with the tolerances of ``tests/test_kernels.py``; and the port's
-device-side int4 packer against the reference's ``fake_quant_tensor``.
+shapes, with the tolerances of ``tests/test_kernels.py``; the port's
+device-side int4 packer against the reference's ``fake_quant_tensor``; and
+which variant of K3 and which tiling of K4 each shape takes.
 (The CUDA kernels themselves are held against these plain versions on the
 card, in ``test_torch_cuda.py``.)"""
 import jax.numpy as jnp
@@ -17,7 +18,10 @@ from repro.kernels import ref as j_ref
 from repro_torch.core.quantize import pack_int4_like_fake_quant
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.int4_matmul import unpack_int4
+from repro_torch.kernels.flash_attention import (WARP_HEADS, WARP_MAX_D,
+                                                 WARP_ROWS, flash_geometry)
+from repro_torch.kernels.int4_matmul import (VARIANTS, WIDE_MAX_ROWS,
+                                             int4_variant, unpack_int4)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -124,3 +128,93 @@ def test_packer_codes_are_fake_quant_codes(shape, scale):
     ulp = np.spacing(np.abs(want).astype(np.float32))
     assert (np.abs(got - want) <= ulp).all()
     assert (unpack_int4(packed)[:, shape[1]:] == 0).all()   # the padding
+
+
+#: (M, K, N, dtype) -> K3's body: the path's layer products and head, the
+#: reference's shapes, the edges of each variant, and every body in each type
+INT4_VARIANT_CASES = [
+    (122880, 12, 12, "float32", "narrow16"),
+    (122880, 12, 48, "float32", "narrow48x2"),
+    (122880, 48, 12, "float32", "narrow16"),
+    (4096, 12, 20000, "float32", "wide16"),
+    (4096, 12, 20000, "bfloat16", "wide16"),
+    (128, 128, 256, "float32", "general"),
+    (128, 256, 256, "bfloat16", "general"),
+    (256, 128, 512, "float32", "general"),
+    (1000, 64, 64, "float32", "narrow64"),
+    (1000, 48, 48, "bfloat16", "narrow48"),
+    (1000, 12, 12, "bfloat16", "general"),     # rows of 24 bytes
+    (1000, 13, 12, "float32", "general"),      # odd K
+    (1000, 12, 14, "float32", "general"),      # rows of out of 56 bytes
+    (1000, 65, 12, "float32", "general"),
+    (1000, 12, 66, "float32", "general"),
+    (1000, 32, 68, "float32", "wide32"),
+    (1000, 33, 20000, "float32", "general"),   # K x 4 weights > 128
+    (1000, 16, 20000, "bfloat16", "wide16"),
+    (1000, 17, 20000, "bfloat16", "general"),
+    (1000, 48, 32, "float32", "narrow32"),
+    (1000, 12, 24, "float32", "narrow32x2"),
+    (1000, 48, 48, "float32", "narrow48"),
+    (1000, 16, 16, "bfloat16", "narrow16"),
+    (1000, 48, 32, "bfloat16", "narrow32"),
+    (1000, 16, 32, "bfloat16", "narrow32x2"),
+    (1000, 32, 48, "bfloat16", "narrow48x2"),
+    (1000, 40, 48, "bfloat16", "narrow48"),    # x rows of 5 chunks
+    (1000, 64, 64, "bfloat16", "narrow64"),
+    (WIDE_MAX_ROWS, 12, 20000, "float32", "wide16"),
+    (WIDE_MAX_ROWS + 1, 12, 20000, "float32", "general"),  # grid.y full
+    (WIDE_MAX_ROWS + 1, 12, 12, "float32", "narrow16"),    # persistent
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,variant", INT4_VARIANT_CASES)
+def test_int4_variant_by_shape(m, k, n, dtype, variant):
+    assert int4_variant(m, k, n, DTYPES[dtype][1]) == variant
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_variant_cases_reach_every_body(dtype):
+    """The shapes above reach every compiled body of K3 in each type (the
+    wide body of K <= 32 is float32's only)."""
+    reached = {c[4] for c in INT4_VARIANT_CASES if c[3] == dtype}
+    want = set(VARIANTS) - ({"wide32"} if dtype == "bfloat16" else set())
+    assert reached == want
+
+
+@pytest.mark.parametrize("x_ptr,out_ptr,narrow,wide", [
+    (0, 0, "narrow16", "wide16"), (4, 0, "general", "wide16"),
+    (0, 8, "general", "general"), (16, 32, "narrow16", "wide16")])
+def test_int4_variant_by_pointer(x_ptr, out_ptr, narrow, wide):
+    """An x pointer off 16 bytes sends the narrow variant's shapes to the
+    general one (the wide one reads x by scalars); an output pointer off 16
+    bytes sends both there."""
+    assert int4_variant(1000, 12, 12, torch.float32, x_ptr, out_ptr) == narrow
+    assert int4_variant(1000, 12, 20000, torch.float32, x_ptr,
+                        out_ptr) == wide
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,want", [
+    (16384, 30, 30, 50, ("warp", 2)),          # the Transformer family's
+    (2, 128, 128, 64, ("general", 1)),         # the reference's shapes
+    (8, 256, 256, 64, ("general", 1)),
+    (8, 128, 384, 128, ("general", 1)),
+    (4, 256, 128, 32, ("general", 1)),
+    (3, 1, 1, 1, ("warp", 2)),
+    (10, 30, 33, 50, ("general", 1)),          # 33 keys
+    (10, 30, 30, 65, ("general", 1)),
+])
+def test_flash_geometry_at_the_path_and_reference_shapes(bh, sq, sk, d,
+                                                         want):
+    assert tuple(flash_geometry(bh, sq, sk, d)) == want
+
+
+@pytest.mark.parametrize("s", (1, 29, 30, 31, 33, 129, 384))
+@pytest.mark.parametrize("d", (1, 49, 50, 64, 100, 128))
+def test_flash_geometry_fits_the_kernel(s, d):
+    """K4 takes the warp-per-head tiling exactly where a head's queries and
+    keys fit a warp's register tiles (S <= 32, D <= 64), with 2 heads a
+    block (1 where there is one head); everything else is general."""
+    fits = s <= WARP_ROWS and d <= WARP_MAX_D
+    assert flash_geometry(10, s, s, d) == (("warp", WARP_HEADS) if fits
+                                           else ("general", 1))
+    assert flash_geometry(1, s, s, d).heads == 1
