@@ -15,10 +15,10 @@ card:
 3. K1 against ``tests/golden/uvm_golden.json`` and against its plain
    version on whole batches of the 77 golden cells, one batch per kernel
    variant (maximum difference 0), with both timed;
-4. K2 (HLSH attention, float32 and bf16), K3 (int4 matmul) and K4 (flash
-   attention) against their plain versions, at the reference's test shapes
-   and types, at the predictor's shapes and at the edges of K3's variants
-   and K4's tilings;
+4. K2 (HLSH attention), K3 (int4 matmul) and K4 (flash attention)
+   against their plain versions, at the reference's test shapes and types,
+   at the predictor's shapes and at the edges of K2's and K4's tilings (K2
+   in both tilings and both types) and K3's variants;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
    served on the card (the quantized simplified predictor's weight products
@@ -55,11 +55,15 @@ card:
     resolved policy equals the legacy engine's probe, cycles included;
     then top-1, F1 and coverage per bench against the simplified family;
 14. kernel times from CUDA events beside the plain versions and a PyTorch
-    yardstick: K1 per kernel variant on the largest batch of each path
-    (the step-clock batches also without their capture, and through the
-    quota specialisation), K1's per-eviction cost against the scanned
-    span, K1 against its plain version on the main path's learned batch and
-    on the tables' tree batch, K2 (float32 and bf16), K3 and K4 at the
+    yardstick: K1 against its plain version on the tables' tree batch
+    (which never evicts: its slowest lane's time per access gives K1's
+    chain bound, the longest lane's accesses at that rate), K1 per kernel
+    variant on the largest batch of each path (the step-clock batches also
+    without their capture, and through the quota specialisation), each with
+    its slowest lane's accesses, evictions, victim-search chunk scans and
+    covered slots, K1's per-eviction cost and chunk scans against the span
+    its search covers, K1 against its plain version on the main path's
+    learned batch, K2 (float32 and bf16, with its tiling), K3 and K4 at the
     predictor's shapes, each per call through its wrapper and as device
     time per launch (a CUDA graph of 20 launches; the profiler where a
     capture fails), in turns with its PyTorch call and its plain version,
@@ -122,15 +126,21 @@ K3_REPLACES = "src/repro/kernels/int4_matmul.py:22"
 K4_REPLACES = "src/repro/kernels/flash_attention.py:26"
 GOLDEN = os.path.join(ROOT, "tests", "golden", "uvm_golden.json")
 SELECTOR = os.path.join(ROOT, "ADAPTIVE_selector.json")
-#: the tolerances of tests/test_kernels.py: K2 and K4 absolute (float32,
-#: bf16; K2's bf16 3e-2), K3 relative to |want| + 1
-K2_ATOL = 2e-4
-K2_BF16_ATOL = 3e-2
+#: the tolerances of tests/test_kernels.py: K2 and K4 absolute, K3
+#: relative to |want| + 1
+K2_ATOL = {"float32": 2e-4, "bfloat16": 3e-2}
 K4_ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
 K3_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: the reference's test shapes: K2 (B, N, D), K4 (B, H, Hkv, Sq, Sk, D), K3
-#: (M, K, N)
+#: K2's cases (B, N, D) and types: the path's shape first (timed in phase
+#: 14), the warp-per-row tiling's edges, and the reference's test shapes
+#: (the general tile); together both tilings in both types
 K2_REF_SHAPES = ((1, 128, 32), (2, 256, 64), (1, 512, 128))
+K2_CASES = tuple(((4096, 30, 12), dt) for dt in ("float32", "bfloat16")) + (
+    ((64, 1, 12), "float32"), ((16, 32, 64), "float32"),
+    ((33, 31, 13), "float32"), ((33, 31, 13), "bfloat16"),
+    ((2, 256, 64), "float32")) + tuple(
+    (shape, "bfloat16") for shape in K2_REF_SHAPES)
+#: the reference's test shapes: K4 (B, H, Hkv, Sq, Sk, D), K3 (M, K, N)
 K4_REF_SHAPES = ((1, 2, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64),
                  (1, 8, 1, 128, 384, 128), (1, 4, 4, 256, 128, 32))
 K3_REF_SHAPES = ((128, 128, 256), (128, 256, 256), (256, 128, 512))
@@ -369,6 +379,45 @@ def k1_bound_ms(batch) -> float:
     return nbytes / HBM_BYTES_S * 1e3
 
 
+def lane_scan_end(batch, lane: int) -> int:
+    """The slots K1's victim search covers in one lane of ``batch``: up to
+    the root window of its highest page, prediction or first touch."""
+    n = int(batch.iparams[lane, 0])
+    hi = int(batch.pages[lane, :n].max()) if n else -1
+    if batch.preds is not None and n:
+        hi = max(hi, int(batch.preds[lane, :n].max()))
+    n_ft = int(batch.iparams[lane, 4])
+    if batch.ft is not None and n_ft > 0:
+        hi = max(hi, int(batch.ft[lane, :n_ft].max()))
+    return min(batch.span, (hi // 512 + 1) * 512)
+
+
+def k1_lanes(batch):
+    """One K1 launch on ``batch`` with its per-lane record: (the stats on
+    the host, the slowest lane by the card's global timer: its
+    microseconds, accesses, evictions, victim-search chunk scans and the
+    slots its search covers)."""
+    import torch
+    from repro_torch.kernels.lane_replay import lane_replay
+    info = torch.zeros((len(batch.pages), 2), dtype=torch.int64,
+                       device="cuda")
+    out = lane_replay(**batch.kernel_args("cuda"), lane_info=info)
+    out = (out[0] if batch.steps_len else out).cpu()
+    info = info.cpu()
+    slow = int(info[:, 1].argmax())
+    return out, {"us": int(info[slow, 1]) / 1e3,
+                 "accesses": int(batch.iparams[slow, 0]),
+                 "evictions": int(out[slow, 7]),
+                 "chunk_scans": int(info[slow, 0]),
+                 "scanned_slots": lane_scan_end(batch, slow)}
+
+
+def lane_text(x) -> str:
+    return (f"slowest lane {x['us'] / 1e3:.1f} ms: {x['accesses']} "
+            f"accesses, {x['evictions']} evictions, {x['chunk_scans']} "
+            f"chunk scans over {x['scanned_slots']} slots")
+
+
 def variant_key(batch):
     """K1's variant of one lane batch: (family, policy[, steps][, quotas])."""
     from repro_torch.kernels.lane_replay import kind_key
@@ -506,7 +555,8 @@ def smoke(args, pool) -> int:
                                                      flash_attention_plain,
                                                      flash_geometry)
     from repro_torch.kernels.hlsh_attention import (hlsh_attention,
-                                                    hlsh_attention_plain)
+                                                    hlsh_attention_plain,
+                                                    hlsh_geometry)
     from repro_torch.kernels.int4_matmul import (int4_matmul,
                                                  int4_matmul_plain,
                                                  VARIANTS, int4_variant,
@@ -663,37 +713,47 @@ def smoke(args, pool) -> int:
               "ms", flush=True)
 
     # ---- phase 4: K2 against its plain version ----------------------------
+    # K2 in both tilings and both types: the path's shape and the warp
+    # tiling's edges (N of 1 and 32, D of 64, odd D with unaligned row
+    # spans), the reference's shapes on the general tile; every draw has a
+    # row whose keys are all erased and, where N > 32, a whole erased key
+    # tile.  bf16 is held against the plain version on float32 copies of
+    # the same inputs (K2 keeps its logits in float32, the bf16 plain
+    # version rounds them: at the path's shape it is the less exact one),
+    # and at the reference's shapes against the bf16 plain version too
     rng = np.random.default_rng(0)
-    k2_err = 0.0
+    k2_err = {"float32": 0.0, "bfloat16": 0.0}
+    k2_bf16_plain = {}
+    k2_geos = {}
     k2_main = None
-    for b, n, d, erased in ((4096, 30, 12, None), (2, 256, 64, (32, 64))):
-        q = torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
-                         device="cuda")
-        v = torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
-                         device="cuda")
-        keep = torch.tensor(rng.random((b, n)) > 0.3, dtype=torch.float32,
+    for (b, n, d), dt in K2_CASES:
+        dt = getattr(torch, dt)
+        q = cuda_randn(rng, (b, n, d), dt)
+        v = cuda_randn(rng, (b, n, d), dt)
+        keep = torch.tensor(rng.random((b, n)) > 0.3, dtype=dt,
                             device="cuda")
-        if erased is not None:
-            keep[:, erased[0]:erased[1]] = 0.0     # one fully erased tile
-        err = float((hlsh_attention(q, q, v, keep)
-                     - hlsh_attention_plain(q, q, v, keep)).abs().max())
-        check(err <= K2_ATOL, f"K2 ({b},{n},{d}): max error {err}")
-        k2_err = max(k2_err, err)
+        keep[0] = 0.0
+        if n > 32:
+            keep[:, 32:64] = 0.0
+        got = hlsh_attention(q, q, v, keep).float()
+        err = float((got - hlsh_attention_plain(
+            *(t.float() for t in (q, q, v, keep)))).abs().max())
+        name = str(dt).split(".")[1]
+        check(err <= K2_ATOL[name], f"K2 ({b},{n},{d}) {name}: max error "
+              f"{err} (limit {K2_ATOL[name]})")
+        if dt == torch.bfloat16:
+            e16 = float((got - hlsh_attention_plain(q, q, v, keep).float()
+                         ).abs().max())
+            k2_bf16_plain[f"{b}x{n}x{d}"] = e16
+            check((b, n, d) not in K2_REF_SHAPES or e16 <= K2_ATOL[name],
+                  f"K2 ({b},{n},{d}) bfloat16: max error {e16} from the "
+                  f"bf16 plain version (limit {K2_ATOL[name]})")
+        k2_err[name] = max(k2_err[name], err)
+        geo = hlsh_geometry(b, n, d, dt)
+        k2_geos.setdefault((geo.tiling, name), []).append((b, n, d))
         if k2_main is None:
             k2_main = (q, v, keep)
-    # K2 in bf16 at the reference's shapes
-    k2_bf16_err = 0.0
-    for b, n, d in K2_REF_SHAPES:
-        q = cuda_randn(rng, (b, n, d), torch.bfloat16)
-        v = cuda_randn(rng, (b, n, d), torch.bfloat16)
-        keep = torch.tensor(rng.random((b, n)) > 0.3, dtype=torch.bfloat16,
-                            device="cuda")
-        keep[:, :min(128, n) // 2] = 0.0         # a fully erased key tile
-        err = float((hlsh_attention(q, q, v, keep).float()
-                     - hlsh_attention_plain(q, q, v, keep).float()
-                     ).abs().max())
-        check(err <= K2_BF16_ATOL, f"K2 bf16 ({b},{n},{d}): max error {err}")
-        k2_bf16_err = max(k2_bf16_err, err)
+    check(len(k2_geos) == 4, f"K2's cases reach only {sorted(k2_geos)}")
     # K4 at the reference's shapes x causal x both types, and at the
     # Transformer family's shape in its float32
     k4_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -774,9 +834,10 @@ def smoke(args, pool) -> int:
               f"{causal}: max error {err} from the float32 plain version")
         k4_err["bfloat16"] = max(k4_err["bfloat16"], err)
     torch.cuda.synchronize()
-    print(f"phase 4: K2 matched its plain version, max error {k2_err:.3g} "
-          f"(limit {K2_ATOL}), in bf16 {k2_bf16_err:.3g} (limit "
-          f"{K2_BF16_ATOL}); K4 on {len(k4_cases)} cases, max error "
+    print(f"phase 4: K2 matched its plain version on {len(K2_CASES)} cases, "
+          f"max error {k2_err} (limits {K2_ATOL}; bf16 from the bf16 plain "
+          f"version {k2_bf16_plain}; by tiling and type {k2_geos}); K4 on "
+          f"{len(k4_cases)} cases, max error "
           f"{k4_err} (limits {K4_ATOL}; bf16 at the path's shape, from "
           f"the float32 plain version and from the bf16 one: "
           + ", ".join(f"{c} {e['vs_float32_plain']:.3g} / "
@@ -1296,6 +1357,43 @@ def smoke(args, pool) -> int:
           flush=True)
 
     # ---- phase 14: kernel times -----------------------------------------
+    # K1 on the tables' tree batch (11 scale-1.0 lanes, no evictions)
+    # against its plain version: the tree family at a driven path's shapes.
+    # Its slowest lane sets K1's chain bound: a lane is one dependent chain
+    # of accesses, so a batch takes at least its longest lane's accesses
+    # times the time an access takes in a lane that never evicts
+    treqs = []
+    for bench in BENCHES:
+        trace, config, pf, _ = sweep.prepare_cell(
+            paper_tables.eval_cell(bench, "tree"), device="cuda")
+        treqs.append(ReplayRequest(trace, pf, config))
+    (tidx,) = backend.pack_lanes(treqs)
+    t_batch = backend.pack_batch([treqs[i] for i in tidx])
+    err, _, t_plain_s = k1_vs_plain(t_batch)
+    check(err == 0.0, f"K1 vs plain on the tables' tree batch: max diff "
+          f"{err}")
+    k1_err = max(k1_err, err)
+    t_args = t_batch.kernel_args("cuda")
+    t_out, t_lane = k1_lanes(t_batch)
+    check(int(t_out[:, 7].max()) == 0, "the tables' tree batch evicted")
+    access_us = t_lane["us"] / t_lane["accesses"]
+
+    def chain_bound_ms(batch):
+        return int(batch.iparams[:, 0].max()) * access_us / 1e3
+
+    variants[("tree", "lru")].update(
+        tables_lanes=len(tidx),
+        tables_accesses=int(t_batch.iparams[:, 0].sum()),
+        tables_ms=cuda_ms(lambda: lane_replay(**t_args), reps=3),
+        tables_plain_ms=t_plain_s * 1e3, tables_bound_ms=k1_bound_ms(t_batch),
+        tables_chain_bound_ms=chain_bound_ms(t_batch),
+        tables_slowest_lane=t_lane, tables_max_abs_err=err)
+    tv = variants[("tree", "lru")]
+    print(f"phase 14 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
+          f"on the tables' tree batch ({len(tidx)} lanes, "
+          f"{tv['tables_accesses']} accesses; {lane_text(t_lane)}), equal to "
+          f"its plain version ({tv['tables_plain_ms']:.1f} ms on the host); "
+          f"chain bound {access_us * 1e3:.1f} ns per access", flush=True)
     # K1 per family x policy on the largest batch of the matrix
     for key, v in variants.items():
         if len(key) > 2:
@@ -1304,36 +1402,42 @@ def smoke(args, pool) -> int:
         big = max(cand, key=lambda b: sum(len(mreqs[i].trace) for i in b))
         batch = backend.pack_batch([mreqs[i] for i in big])
         args_ = batch.kernel_args("cuda")
+        _, lane = k1_lanes(batch)
         v.update(matrix_launches=matrix_by.get(key, 0),
                  matrix_lanes=len(big),
                  matrix_accesses=int(batch.iparams[:, 0].sum()),
                  ms=cuda_ms(lambda: lane_replay(**args_), reps=2),
-                 bound_ms=k1_bound_ms(batch))
+                 bound_ms=k1_bound_ms(batch),
+                 chain_bound_ms=chain_bound_ms(batch), slowest_lane=lane)
+        v["chain_share"] = v["chain_bound_ms"] / v["ms"]
         print(f"phase 14 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
               f"launch on the matrix's largest batch ({len(big)} lanes, "
-              f"{v['matrix_accesses']} accesses; bound {v['bound_ms']:.5f} "
-              f"ms); golden batch {v['golden_ms']:.3f} ms, plain "
-              f"{v['golden_plain_ms']:.1f} ms", flush=True)
+              f"{v['matrix_accesses']} accesses; {lane_text(lane)}; chain "
+              f"bound {v['chain_bound_ms']:.2f} ms, "
+              f"{100 * v['chain_share']:.0f}% of it; bytes bound "
+              f"{v['bound_ms']:.5f} ms); golden batch {v['golden_ms']:.3f} "
+              f"ms, plain {v['golden_plain_ms']:.1f} ms", flush=True)
     # the step-clock and quota variants on the largest batch of each path,
-    # with the slowest lane's evictions (each one a scan of its span); the
-    # serve batches also without their step capture, and the shared
-    # multi-tenant batches also through the quota specialisation, to cost
-    # each variant's own branch on the same lanes
+    # with the slowest lane's evictions; the serve batches also without
+    # their step capture, and the shared multi-tenant batches also through
+    # the quota specialisation, to cost each variant's own branch on the
+    # same lanes
     for path, by_key, by in (("serve", serve_batches, serve_by),
                              ("mt", mt_batches, mt_by)):
         for key, batches in sorted(by_key.items()):
             big = max(batches, key=lambda b: int(b.iparams[:, 0].sum()))
             args_ = big.kernel_args("cuda")
-            out = lane_replay(**args_)
-            out = (out[0] if big.steps_len else out).cpu()
+            out, lane = k1_lanes(big)
             v = variants.setdefault(key, new_variant(key))
             v.update({f"{path}_launches": by.get(key, 0),
                       f"{path}_lanes": int((big.iparams[:, 0] > 0).sum()),
                       f"{path}_accesses": int(big.iparams[:, 0].sum()),
                       f"{path}_max_lane_evictions": int(out[:, 7].max()),
+                      f"{path}_slowest_lane": lane,
                       f"{path}_ms": cuda_ms(lambda: lane_replay(**args_),
                                             reps=1),
-                      f"{path}_bound_ms": k1_bound_ms(big)})
+                      f"{path}_bound_ms": k1_bound_ms(big),
+                      f"{path}_chain_bound_ms": chain_bound_ms(big)})
             same = None
             if key[2:] == ("steps",):
                 other = (dataclasses.replace(big, sids=None, steps_len=0)
@@ -1348,17 +1452,19 @@ def smoke(args, pool) -> int:
                   f"largest batch ({v[path + '_lanes']} lanes, "
                   f"{v[path + '_accesses']} accesses, at most "
                   f"{v[path + '_max_lane_evictions']} evictions a lane; "
-                  f"bound {v[path + '_bound_ms']:.5f} ms); "
-                  f"{v[path + '_launches']} launches"
+                  f"{lane_text(lane)}; chain bound "
+                  f"{v[path + '_chain_bound_ms']:.2f} ms, "
+                  f"{100 * v[path + '_chain_bound_ms'] / v[path + '_ms']:.0f}"
+                  f"% of it); {v[path + '_launches']} launches"
                   + ("" if same is None else
                      f"; {same}: "
                      f"{v[path + '_ms_' + same.replace(' ', '_')]:.2f} ms"),
                   flush=True)
-    # the per-eviction victim scan against the scanned span: one serve lane
-    # (ServeDecode, tree/lru at half its working set), its pages moved up
-    # by whole spans so that each eviction's scan reads more empty slots
-    # while the replay stays the same (lru and the tree's node counts see
-    # only page differences within 2 MB windows)
+    # the victim search against the span: one serve lane (ServeDecode,
+    # tree/lru at half its working set), its pages moved up by whole spans
+    # so that the search covers more empty chunks while the replay stays
+    # the same (lru and the tree's node counts see only page differences
+    # within 2 MB windows)
     tr = sweep.load_trace("ServeDecode", 1.0, 0, None)
     cfg = UVMConfig(device_pages=int(tr.working_set_pages * 0.5))
     base = backend.pack_batch([ReplayRequest(tr, TreePrefetcher(), cfg)])
@@ -1369,26 +1475,29 @@ def smoke(args, pool) -> int:
             base, pages=base.pages + extra * base.span,
             span=base.span * (1 + extra))
         s_args = shifted.kernel_args("cuda")
-        out = lane_replay(**s_args).cpu()
+        out, lane = k1_lanes(shifted)
         base_out = out if base_out is None else base_out
         check(torch.equal(out, base_out), f"the shifted lane (span "
               f"{shifted.span}) replays differently")
         ms = cuda_ms(lambda: lane_replay(**s_args), reps=2)
-        # K1 scans up to the root window of the lane's highest page
-        top = int(shifted.pages[0, :len(tr)].max())
+        ev = float(out[0, 7])
         scan_span.append({
-            "span": shifted.span,
-            "scanned": min(shifted.span, (top // k1.ROOT_PAGES + 1)
-                           * k1.ROOT_PAGES),
-            "ms": ms, "evictions": int(out[0, 7]),
-            "us_per_eviction": ms * 1e3 / float(out[0, 7])})
+            "span": shifted.span, "scanned": lane["scanned_slots"],
+            "ms": ms, "evictions": int(ev),
+            "chunk_scans": lane["chunk_scans"],
+            "scans_per_eviction": lane["chunk_scans"] / ev,
+            "us_per_eviction": ms * 1e3 / ev})
+    flat = scan_span[-1]["us_per_eviction"] / scan_span[0]["us_per_eviction"]
     print(f"phase 14 {card}: K1 tree/lru on one ServeDecode lane "
           f"({int(base_out[0, 7])} evictions in {len(tr)} accesses, "
-          f"{tr.working_set_pages} pages of working set) against the slots "
-          "each eviction scans: " + ", ".join(
+          f"{tr.working_set_pages} pages of working set, the same at every "
+          "span) against the slots its victim search covers: " + ", ".join(
               f"{x['scanned']} slots {x['ms']:.1f} ms "
-              f"({x['us_per_eviction']:.2f} us per eviction)"
-              for x in scan_span), flush=True)
+              f"({x['us_per_eviction']:.2f} us and "
+              f"{x['scans_per_eviction']:.2f} chunk scans per eviction)"
+              for x in scan_span)
+          + f"; the largest span's us per eviction is {flat:.2f}x the "
+          "smallest's", flush=True)
     # K1 on the main path's learned batch against its plain version
     plain, plain_s = main_plain.result()
     err, _ = k1_against(k1_batch, plain)
@@ -1399,32 +1508,8 @@ def smoke(args, pool) -> int:
     # one launch is about 0.15 s: the profiler's device time, no graph
     k1_dev = profiled_ms(lambda: lane_replay(**k1_args), reps=1)
     k1_bound = k1_bound_ms(k1_batch)
+    k1_chain = chain_bound_ms(k1_batch)
     n_acc = int(k1_batch.iparams[:, 0].sum())
-    # K1 on the tables' tree batch (11 scale-1.0 lanes, no evictions)
-    # against its plain version: the tree family at a driven path's shapes
-    treqs = []
-    for bench in BENCHES:
-        trace, config, pf, _ = sweep.prepare_cell(
-            paper_tables.eval_cell(bench, "tree"), device="cuda")
-        treqs.append(ReplayRequest(trace, pf, config))
-    (tidx,) = backend.pack_lanes(treqs)
-    t_batch = backend.pack_batch([treqs[i] for i in tidx])
-    err, _, t_plain_s = k1_vs_plain(t_batch)
-    check(err == 0.0, f"K1 vs plain on the tables' tree batch: max diff "
-          f"{err}")
-    k1_err = max(k1_err, err)
-    t_args = t_batch.kernel_args("cuda")
-    variants[("tree", "lru")].update(
-        tables_lanes=len(tidx),
-        tables_accesses=int(t_batch.iparams[:, 0].sum()),
-        tables_ms=cuda_ms(lambda: lane_replay(**t_args), reps=3),
-        tables_plain_ms=t_plain_s * 1e3, tables_bound_ms=k1_bound_ms(t_batch),
-        tables_max_abs_err=err)
-    tv = variants[("tree", "lru")]
-    print(f"phase 14 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
-          f"on the tables' tree batch ({len(tidx)} lanes, "
-          f"{tv['tables_accesses']} accesses), equal to its plain version "
-          f"({tv['tables_plain_ms']:.1f} ms on the host)", flush=True)
     # K2, K3 and K4 at the predictor's shapes: per call through the wrapper
     # (what a path pays) and device time per launch (a CUDA graph of the
     # launches), the kernel, its PyTorch call and its plain version in
@@ -1443,42 +1528,49 @@ def smoke(args, pool) -> int:
                 "timing": t["kernel"]["method"]}
 
     # K2: the yardstick is one scaled_dot_product_attention call on
-    # pre-masked q/k (the port never calls it)
+    # pre-masked q/k (the port never calls it).  k holds q's values in a
+    # tensor of its own, as on the path (the layer's shared QK is split into
+    # head-major copies), so every call reads q, k, v and keep and writes
+    # the output
     q, v, keep = k2_main
     b, n, d = q.shape
+    k = q.clone()
     qm = (q * keep[..., None]).contiguous()
+    km = qm.clone()
     k2_bytes = 4 * b * n * d * 4 + b * n * 4
+    k2_geo = hlsh_geometry(b, n, d, q.dtype).name()
 
     def k2_calls(copies):
         """K2, its PyTorch call and its plain version over ``copies`` of
-        (q, v, keep, q pre-masked)."""
+        (q, k, v, keep, q and k pre-masked)."""
         return {
-            "kernel": rotating(lambda q, v, kp, qm: hlsh_attention(
-                q, q, v, kp), copies),
-            "library": rotating(lambda q, v, kp, qm: sdpa(qm, qm, v),
+            "kernel": rotating(lambda q, k, v, kp, qm, km: hlsh_attention(
+                q, k, v, kp), copies),
+            "library": rotating(lambda q, k, v, kp, qm, km: sdpa(qm, km, v),
                                 copies),
-            "plain": rotating(lambda q, v, kp, qm: hlsh_attention_plain(
-                q, q, v, kp), copies)}
+            "plain": rotating(lambda q, k, v, kp, qm, km:
+                              hlsh_attention_plain(q, k, v, kp), copies)}
 
-    k2_t = timed_in_turns(k2_calls(copies_of((q, v, keep, qm), k2_bytes)),
-                          reps=50)
-    tile = 32
-    n_tiles = math.ceil(n / tile)
-    kept_tiles = sum(int((keep[:, t * tile:(t + 1) * tile] > 0).any(1).sum())
-                     for t in range(n_tiles))
-    k2_flops = 4 * n * min(tile, n) * d * kept_tiles
+    k2_t = timed_in_turns(
+        k2_calls(copies_of((q, k, v, keep, qm, km), k2_bytes)), reps=50)
+    # the products this keep mask needs: a logit for each pair of kept
+    # query and kept key (an erased one is 0), a value product for every
+    # pair
+    kept = (keep > 0).sum(1).double()
+    k2_flops = float((2 * d * kept * kept + 2 * d * n * n).sum())
     k2_bound_bytes = k2_bytes / HBM_BYTES_S * 1e3
     k2_bound_ops = k2_flops / F32_FLOPS * 1e3
     k2_bound = max(k2_bound_bytes, k2_bound_ops)
     # K2 in bf16 at the same shape and keep mask
-    qb, vb, keepb = (t.to(torch.bfloat16) for t in (q, v, keep))
-    qmb = (qb * keepb[..., None]).contiguous()
-    k2b_t = timed_in_turns(
-        k2_calls(copies_of((qb, vb, keepb, qmb), k2_bytes / 2)), reps=50)
+    k2_bf16_in = tuple(t.to(torch.bfloat16) for t in (q, k, v, keep, qm, km))
+    k2b_t = timed_in_turns(k2_calls(copies_of(k2_bf16_in, k2_bytes / 2)),
+                           reps=50)
     b2_bytes = (4 * b * n * d + b * n) * 2 / HBM_BYTES_S * 1e3
     k2b_bound = max(b2_bytes, k2_bound_ops)
     k2_bf16 = {"dtype": "bfloat16", "shape": [b, n, d],
-               "max_abs_err": k2_bf16_err, "variant": "bfloat16",
+               "max_abs_err": k2_err["bfloat16"],
+               "max_abs_err_from_bf16_plain": k2_bf16_plain,
+               "variant": k2_geo,
                "bound_ms": k2b_bound,
                "bound_by": "bytes" if b2_bytes >= k2_bound_ops
                else "operations",
@@ -1558,6 +1650,8 @@ def smoke(args, pool) -> int:
          "plain_ms": plain_s * 1e3, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None, "library_device_ms": None,
          "share_of_bound": None if k1_dev is None else k1_bound / k1_dev,
+         "chain_bound_ms": k1_chain, "access_us": access_us,
+         "chain_share": None if k1_dev is None else k1_chain / k1_dev,
          "variant": "learned/lru",
          "variants": [dict(v, bound_by="bytes", library_ms=None)
                       for v in variants.values()],
@@ -1566,7 +1660,8 @@ def smoke(args, pool) -> int:
          "replaces": K2_REPLACES,
          "launches": sum(by_path("hlsh_attention").values()),
          "launches_by_path": by_path("hlsh_attention"),
-         "max_abs_err": k2_err, "shape": [b, n, d], "variant": "float32",
+         "max_abs_err": k2_err["float32"], "max_abs_err_by_dtype": k2_err,
+         "shape": [b, n, d], "dtype": "float32", "variant": k2_geo,
          "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
          else "operations",
@@ -1606,11 +1701,12 @@ def smoke(args, pool) -> int:
     k1_dev_txt = "not measured" if k1_dev is None else f"{k1_dev:.3f}"
     print(f"phase 14 {card}: K1 {k1_ms:.3f} ms per launch ({k1_dev_txt} ms "
           f"device) on the main path's learned batch "
-          f"({len(k1_batch.pages)} lanes padded, {n_acc} accesses; plain "
-          f"version {plain_s * 1e3:.1f} ms on the host)", flush=True)
-    print(f"phase 14 {card}: K2 at ({b},{n},{d}) float32 {times(kernels[1])}"
-          f"; bf16 {times(k2_bf16)} (library: scaled_dot_product_attention)",
-          flush=True)
+          f"({len(k1_batch.pages)} lanes padded, {n_acc} accesses; chain "
+          f"bound {k1_chain:.2f} ms; plain version {plain_s * 1e3:.1f} ms on "
+          "the host)", flush=True)
+    print(f"phase 14 {card}: K2 at ({b},{n},{d}) [{k2_geo}] float32 "
+          f"{times(kernels[1])}; bf16 {times(k2_bf16)} (library: "
+          "scaled_dot_product_attention)", flush=True)
     print(f"phase 14 {card}: K4 at {K4_PATH_SHAPE} float32 [{k4_variant}] "
           f"{times(kernels[3])} (library: scaled_dot_product_attention); "
           f"launches by path {by_path('flash_attention')}", flush=True)

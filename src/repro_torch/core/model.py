@@ -114,15 +114,39 @@ class Predictor(nn.Module):
             }))
         self.head = nn.Parameter(_dense_init(g, (d, cfg.n_classes)))
         self.head_b = nn.Parameter(torch.zeros(cfg.n_classes))
-        self.register_buffer("pos", _positional(cfg.seq_len, d),
-                             persistent=False)
-        if cfg.attention == "hlsh":
-            r, sel = attn_lib.lsh_draws(d // cfg.n_heads, cfg.n_hashes,
-                                        cfg.n_buckets, cfg.seq_len,
-                                        cfg.lsh_seed)
-            self.register_buffer("lsh_r", r, persistent=False)
-            self.register_buffer("lsh_sel", sel, persistent=False)
+        # per window length S, as the reference computes them on every call:
+        # the positional table and the HLSH draws (r, sel)
+        self._pos: dict[int, torch.Tensor] = {}
+        self._lsh: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self.to(device)
+
+    def set_lsh_draws(self, s: int, r: torch.Tensor, sel: torch.Tensor
+                      ) -> None:
+        """Use ``r`` and ``sel`` as the HLSH draws of windows of ``s``
+        tokens (for example the reference's own ``jax.random`` draws)."""
+        self._lsh[s] = (r, sel)
+
+    def _positions(self, s: int, d: int, device: torch.device
+                   ) -> torch.Tensor:
+        """The positional table of windows of ``s`` tokens, on ``device``."""
+        pos = self._pos.get(s)
+        if pos is None or pos.device != device:
+            pos = self._pos[s] = _positional(s, d).to(device)
+        return pos
+
+    def _lsh_draws(self, s: int, device: torch.device):
+        """The HLSH draws of windows of ``s`` tokens, on ``device``: those
+        :meth:`set_lsh_draws` gave, else ``attention.lsh_draws``'s (JAX's
+        for the simplified configuration at ``cfg.seq_len``, torch's at any
+        other S)."""
+        cfg = self.cfg
+        draws = self._lsh.get(s) or attn_lib.lsh_draws(
+            cfg.d_model // cfg.n_heads, cfg.n_hashes, cfg.n_buckets, s,
+            cfg.lsh_seed)
+        if draws[0].device != device:
+            draws = tuple(t.to(device) for t in draws)
+        self._lsh[s] = draws
+        return draws
 
     def _qw(self, w: torch.Tensor) -> torch.Tensor:
         return fake_quant_tensor(w) if self.cfg.quantize else w
@@ -151,8 +175,8 @@ class Predictor(nn.Module):
             heads = (bh // cfg.n_heads, cfg.n_heads, s, dh)
             return ops.flash_attention(q.view(heads), k.view(heads),
                                        v.view(heads)).view(bh, s, dh)
-        plan = attn_lib.hlsh_plan(q, self.lsh_r, self.lsh_sel, cfg.n_hashes,
-                                  cfg.htop, cfg.hbot)
+        r, sel = self._lsh_draws(q.shape[1], q.device)
+        plan = attn_lib.hlsh_plan(q, r, sel, cfg.n_hashes, cfg.htop, cfg.hbot)
         if torch.is_grad_enabled():
             return attn_lib.hlsh_apply(q, k, v, plan)
         return ops.hlsh_attention(q, k, v, plan.keep.to(q.dtype),
@@ -182,7 +206,7 @@ class Predictor(nn.Module):
         x = x.long()
         h = torch.cat([self._qw(self.emb[f])[x[:, :, j]]
                        for j, f in enumerate(self.cfg.features)], dim=-1)
-        h = h + self.pos[:h.shape[1]]
+        h = h + self._positions(h.shape[1], h.shape[2], h.device)
         h = self._qa(h)
         for lp in self.layers:
             h = self._encoder_layer(lp, h)

@@ -22,21 +22,49 @@
 //     pages in stream order.  A fault scans twice (batch DMA, then the
 //     continuous scan with the sequential t += page_tx arrival chain), the
 //     second scan after the first's insertions;
-//   * each eviction's victim search: the minimum policy key among resident
-//     pages, first index on ties (jnp.argmin's rule) -- lru the touch stamp,
-//     random (prio << 21) | slot with prio the insert-time uint32 hash draw,
-//     hotcold (freq << 32) | stamp with freq the touches since migration.
+//   * each eviction's victim search (warp 0 alone): the minimum policy key
+//     among resident pages, first index on ties (jnp.argmin's rule) -- lru
+//     the touch stamp, random (prio << 21) | slot with prio the insert-time
+//     uint32 hash draw, hotcold (freq << 32) | stamp with freq the touches
+//     since migration.
+//
+// The victim search reads a summary, not the span.  The span is cut into
+// chunks of 512 slots (a root window each), and the block keeps in shared
+// memory a lower bound of each chunk's least key over its resident slots.
+// Three facts make the bounds cheap and exact:
+//   * a resident page's key only grows until it is evicted: an lru retouch
+//     takes the monotone counter, hotcold adds to freq and takes a new
+//     stamp, random's prio is drawn once at insertion; so only an insertion
+//     can set a lower key, and every insertion site lowers its chunk's
+//     bound (thread 0 for demand, block DMA and learned pages, atomicMin in
+//     the tree emission and the oracle takes), while a retouch or an
+//     eviction leaves the bound valid as it is;
+//   * stamps are unique among resident pages (each is the counter, or the
+//     counter plus a rank below the k it then advances by), and the lru and
+//     random keys carry the slot, so two resident pages never tie;
+//   * a tenant's slot range [0, bnd) or [bnd, span) is a whole number of
+//     chunks: the tenant boundary is root-aligned (the wrapper checks it).
+// Warp 0 searches, with no block barrier: the other warps wait at the
+// next access's block phase.  A search starts at the chunk the last one
+// ended in.  One warp reduction scans that chunk exactly (16 slots a lane)
+// and finds the least (bound, chunk) among the other chunks of the range;
+// the chunk's bound becomes its exact minimum, and the search stops when
+// that minimum is below every other bound (ties to the lower chunk), else
+// moves to the chunk of the least bound.  The victim is then the exact
+// minimum key of the range, as a scan of every slot gives it.  A search
+// costs a few warp reductions, whatever the span; a chunk's slots are read
+// once more after each retouch burst or eviction in it.
 //
 // Bound: latency.  Each access depends on the clock and the page state the
 // previous one left, so a lane is one long dependent chain; the bytes moved
 // and the operations are tiny next to its length.  Lanes run concurrently on
-// separate SMs; the window classify, the prefix counts and the victim scan
-// are the block's parallel work, each a few barriers long.  The victim scan
-// is the one piece that grows with the state: it reads every slot of the
-// lane's own span (not the batch's padded span) once per eviction.  Family,
-// policy and the quota eviction are template parameters, so each kernel
-// carries only its own branches; step capture is one predicated store per
-// access, taken when the wrapper passes a window-clock buffer.
+// separate SMs; the window classify and the prefix counts are the block's
+// parallel work, each a few barriers long, and the victim search warp 0's.
+// Family, policy and the quota eviction are template parameters, so each
+// kernel carries only its own branches; step capture is one predicated
+// store per access, taken when the wrapper passes a window-clock buffer.
+// Where the wrapper passes a lane_info buffer, thread 0 writes each lane's
+// chunk scans and its nanoseconds on the global timer there.
 //
 // Step clocks: each access carries its window id (sids); thread 0 stores the
 // clock after the MSHR trim -- final for the access, eviction never moves
@@ -62,7 +90,8 @@
 // accesses (a tree fault can stamp a whole root window) and the others at
 // 2^24.
 //
-// Lane state lives in device memory the wrapper allocates: arrival (f64,
+// Lane state lives in device memory the wrapper allocates (the chunk bounds,
+// (span + 511) / 512 of them, in dynamic shared memory): arrival (f64,
 // +inf = not resident), stamp (i32 touch stamp), pfu (u8
 // prefetched-and-unused), freq (i32, hotcold), prio (u32, random), the tree's
 // per-level node counts (span >> (4 + lv) i32 for lv = 0..5), the MSHR
@@ -89,6 +118,8 @@
 
 enum { FAM_DEMAND = 0, FAM_TREE = 1, FAM_LEARNED = 2, FAM_ORACLE = 3 };
 enum { POL_LRU = 0, POL_RANDOM = 1, POL_HOTCOLD = 2 };
+
+typedef unsigned long long u64;
 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
@@ -124,6 +155,42 @@ __device__ __forceinline__ int block_prefix(bool flag, int* s_warp, int* total) 
   return before + incl;
 }
 
+// The victim key of a resident slot (the least is evicted): lru
+// (stamp << 32) | slot, random (prio << 21) | slot, hotcold
+// (freq << 32) | stamp with the slot beside it.
+template <int POLICY>
+__device__ __forceinline__ u64 victim_key(int slot, int stamp, int freq,
+                                          unsigned prio) {
+  if (POLICY == POL_RANDOM) return ((u64)prio << 21) | (unsigned)slot;
+  if (POLICY == POL_HOTCOLD)
+    return ((u64)(unsigned)freq << 32) | (unsigned)stamp;
+  return ((u64)(unsigned)stamp << 32) | (unsigned)slot;
+}
+
+// (k, i) = the lesser of (k, i) and (ok, oi), key first, then index
+__device__ __forceinline__ void min_pair(u64& k, int& i, u64 ok, int oi) {
+  if (ok < k || (ok == k && oi < i)) {
+    k = ok;
+    i = oi;
+  }
+}
+
+// The warp's least (ka, ia) and least (kb, ib), in every lane
+__device__ __forceinline__ void warp_min2(u64& ka, int& ia, u64& kb, int& ib) {
+  for (int off = 16; off > 0; off >>= 1) {
+    min_pair(ka, ia, __shfl_xor_sync(FULL, ka, off),
+             __shfl_xor_sync(FULL, ia, off));
+    min_pair(kb, ib, __shfl_xor_sync(FULL, kb, off),
+             __shfl_xor_sync(FULL, ib, off));
+  }
+}
+
+__device__ __forceinline__ u64 global_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 struct Shared {
   double clock, pcie_free;
   int counter, p, fault;
@@ -152,11 +219,16 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
                    const int* __restrict__ iparams, double* arrival_all,
                    int* stamp_all, unsigned char* pfu_all, int* freq_all,
                    unsigned* prio_all, int* counts_all, double* buf_all,
-                   double* __restrict__ out, double* steps_all, int t_max,
-                   int span, int buf_len, int ft_len, int lookahead,
-                   int steps_len) {
+                   double* __restrict__ out, double* steps_all,
+                   long long* __restrict__ lane_info, int t_max, int span,
+                   int buf_len, int ft_len, int lookahead, int steps_len) {
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
+  const u64 t_begin = tid == 0 && lane_info ? global_ns() : 0;
+  // lower bounds of each chunk's least victim key (~0: nothing resident)
+  extern __shared__ u64 bound[];
+  const int n_chunks = (span + ROOT_PAGES - 1) / ROOT_PAGES;
+  for (int c = tid; c < n_chunks; c += THREADS) bound[c] = ~0ULL;
   const double INF = __longlong_as_double(0x7ff0000000000000LL);
   constexpr int family = FAMILY;
   constexpr bool oracle = FAMILY == FAM_ORACLE, tree = FAMILY == FAM_TREE;
@@ -215,8 +287,6 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   const int q0 = ip[7], q1 = ip[8];
   const bool split = QUOTAS && cap >= 0 && q0 >= 0;
 
-  __shared__ unsigned long long s_key[NWARPS];
-  __shared__ int s_idx[NWARPS];
   __shared__ int s_warp[NWARPS];
   __shared__ int s_hi;
   __shared__ Shared sh;
@@ -256,6 +326,10 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   int counter = 0, resident = 0, nbuf = 0, hits = 0, late = 0, faults = 0;
   int issued = 0, used = 0, migrated = 0, evicted = 0, wbacks = 0, th0 = 0;
   int rc0 = 0;   // quota lanes: resident pages of tenant 0
+  // the victim search (warp 0): the chunk it starts at (the last one's)
+  // and (thread 0) the chunks it scanned
+  int cur = 0;
+  long long scans = 0;
 
   for (int t = 0; t < n; ++t) {
     bool need_victim = false, faulted = false;
@@ -293,12 +367,18 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         pcie_free = add_rn(start, page_tx);
         if (tree) {
           // on_migrate([demand]) runs before on_fault
-          for (int lv = 0; lv <= TREE_LEVELS; ++lv) counts[lv_off[lv] + (p >> (4 + lv))] += 1;
+          // (atomic adds: the six updates go out without waiting on each
+          // other's read; the block phase reads them after a barrier)
+          for (int lv = 0; lv <= TREE_LEVELS; ++lv) atomicAdd(&counts[lv_off[lv] + (p >> (4 + lv))], 1);
         }
       } else if (hotcold) {
         freq[p] += 1;
       }
       stamp[p] = counter;   // demand insert or retouch
+      if (is_fault) {
+        const u64 key = victim_key<POLICY>(p, counter, 0, randomp ? prio[p] : 0u);
+        if (key < bound[p / ROOT_PAGES]) bound[p / ROOT_PAGES] = key;
+      }
       counter += 1;
 
       if (is_fault || is_late) {
@@ -331,6 +411,8 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
               stamp[q] = counter + rank;
               if (hotcold) freq[q] = 0;
               if (randomp) prio[q] = rand_score(lane_lo + (unsigned)q, (unsigned)(counter + rank));
+              const u64 key = victim_key<POLICY>(q, counter + rank, 0, randomp ? prio[q] : 0u);
+              if (key < bound[q / ROOT_PAGES]) bound[q / ROOT_PAGES] = key;
               rank += 1;
             }
           }
@@ -359,6 +441,8 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           pfu[pred] = 1;
           if (hotcold) freq[pred] = 0;
           if (randomp) prio[pred] = rand_score(lane_lo + (unsigned)pred, (unsigned)counter);
+          const u64 key = victim_key<POLICY>(pred, counter, 0, randomp ? prio[pred] : 0u);
+          if (key < bound[pred / ROOT_PAGES]) bound[pred / ROOT_PAGES] = key;
           counter += 1;
           resident += 1;
           if (QUOTAS) rc0 += pred < bnd;
@@ -407,6 +491,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         const double ex_ready = add_rn(add_rn(sh.clock, pfo), extra_lat);
         const double ex_start = fmax(sh.pcie_free, ex_ready);
         const double end = add_rn(ex_start, mul_rn((double)k, page_tx));
+        u64 key = ~0ULL;
         if (emit) {
           const int s = sh.counter + rank;
           arrival[g] = add_rn(end, pcie_lat);
@@ -414,7 +499,14 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           stamp[g] = s;
           if (hotcold) freq[g] = 0;
           if (randomp) prio[g] = rand_score(lane_lo + (unsigned)g, (unsigned)s);
+          key = victim_key<POLICY>(g, s, 0, randomp ? prio[g] : 0u);
         }
+        // the root window is one chunk: its bound takes the least new key
+        for (int off = 16; off > 0; off >>= 1) {
+          const u64 ok = __shfl_xor_sync(FULL, key, off);
+          key = ok < key ? ok : key;
+        }
+        if ((tid & 31) == 0 && key != ~0ULL) atomicMin(&bound[root / ROOT_PAGES], key);
         // on_migrate of the batch: per-level node counts, warp-aggregated
         // (a warp's 32 pages share one node at every level >= 1)
         const unsigned b = __ballot_sync(FULL, emit);
@@ -482,6 +574,8 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           pfu[idx] = 1;
           if (hotcold) freq[idx] = 0;
           if (randomp) prio[idx] = rand_score(lane_lo + (unsigned)idx, (unsigned)s);
+          atomicMin(&bound[idx / ROOT_PAGES],
+                    victim_key<POLICY>(idx, s, 0, randomp ? prio[idx] : 0u));
         }
         __syncthreads();
         if (tid == 0) {
@@ -514,77 +608,92 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
       need_victim = next_victim(resident, rc0);
     }
 
-    // eviction under oversubscription: the whole block searches the
-    // victim; an in-flight victim is retouched at MRU and ends the loop
-    while (__syncthreads_or(need_victim)) {
-      const int ev_lo = split ? sh.ev_lo : 0;
-      const int ev_hi = split ? sh.ev_hi : scan_end;
-      // lru keys (stamp << 32) | slot and random keys (prio << 21) | slot
-      // carry the slot, so their minimum is the first index on ties; the
-      // hotcold key (freq << 32) | stamp carries none, and its slot rides
-      // beside it.  The scan stops at the lane's own span, so never at the
-      // trash slot.
-      unsigned long long best = ~0ULL;
-      int bi = IMAX;
-      for (int i = ev_lo + tid; i < ev_hi; i += THREADS) {
-        if (hotcold) {
-          if (arrival[i] < INF) {
-            const unsigned long long key =
-                ((unsigned long long)(unsigned)freq[i] << 32) | (unsigned)stamp[i];
-            if (key < best) { best = key; bi = i; }
+    // eviction under oversubscription: warp 0 searches the victim over
+    // the chunk bounds and thread 0 evicts it, with no block barrier (the
+    // other warps wait at the next access's block phase, or the end); an
+    // in-flight victim is retouched at MRU and ends the loop
+    if (tid < 32) {
+      __syncwarp();   // thread 0's insertions and range are visible
+      while (__shfl_sync(FULL, need_victim, 0)) {
+        const int ev_lo = split ? sh.ev_lo : 0;
+        const int ev_hi = split ? sh.ev_hi : scan_end;
+        const int c_lo = ev_lo / ROOT_PAGES;
+        const int c_hi = ev_hi > ev_lo ? (ev_hi + ROOT_PAGES - 1) / ROOT_PAGES : c_lo;
+        if (cur < c_lo || cur >= c_hi) cur = c_lo;
+        int vi;
+        for (;;) {
+          // chunk `cur` exactly, 16 slots a lane, every load in flight at
+          // once (the scan stops at the lane's own span, so never at the
+          // oracle's trash slot); a lane's slots rise, so the first index
+          // wins its ties
+          u64 ka = ~0ULL;
+          int ia = IMAX;
+#pragma unroll 8
+          for (int r = 0; r < ROOT_PAGES / 32; ++r) {
+            const int i = cur * ROOT_PAGES + r * 32 + tid;
+            if (i < ev_hi) {
+              const double a = arrival[i];
+              const u64 key = victim_key<POLICY>(
+                  i, stamp[i], hotcold ? freq[i] : 0, randomp ? prio[i] : 0u);
+              if (a < INF && key < ka) {
+                ka = key;
+                ia = i;
+              }
+            }
           }
-        } else {
-          const unsigned long long key =
-              !(arrival[i] < INF) ? ~0ULL
-              : randomp ? ((unsigned long long)prio[i] << 21) | (unsigned)i
-                        : ((unsigned long long)(unsigned)stamp[i] << 32) | (unsigned)i;
-          best = key < best ? key : best;
+          // the least bound of the other chunks; chunk c is lane c % 32's,
+          // which alone reads and writes it in a search (four reads in
+          // flight at once, each lane's chunks in rising order)
+          u64 kb = ~0ULL;
+          int ib = IMAX;
+          for (int c0 = tid; c0 < c_hi; c0 += 4 * 32) {
+            u64 bv[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              bv[j] = c0 + 32 * j < c_hi ? bound[c0 + 32 * j] : ~0ULL;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = c0 + 32 * j;
+              if (c >= c_lo && c != cur && bv[j] < kb) {
+                kb = bv[j];
+                ib = c;
+              }
+            }
+          }
+          warp_min2(ka, ia, kb, ib);
+          scans += 1;
+          if (tid == cur % 32) bound[cur] = ka;   // exact now
+          if (ka < kb || (ka == kb && cur < ib) || ib == IMAX) {
+            vi = ia;
+            break;
+          }
+          cur = ib;
         }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long ok = __shfl_down_sync(FULL, best, off);
-        if (hotcold) {
-          const int oi = __shfl_down_sync(FULL, bi, off);
-          if (ok < best || (ok == best && oi < bi)) { best = ok; bi = oi; }
-        } else {
-          best = ok < best ? ok : best;
-        }
-      }
-      if ((tid & 31) == 0) {
-        s_key[tid >> 5] = best;
-        s_idx[tid >> 5] = bi;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        for (int w = 1; w < NWARPS; ++w) {
-          if (s_key[w] < best || (s_key[w] == best && s_idx[w] < bi)) {
-            best = s_key[w];
-            bi = s_idx[w];
+        if (tid == 0) {
+          // the range holds a resident page: the lane is over its capacity,
+          // or the tenant over its allowance
+          if (arrival[vi] > clock) {
+            stamp[vi] = counter;
+            if (hotcold) freq[vi] += 1;
+            counter += 1;
+            need_victim = false;
+          } else {
+            arrival[vi] = INF;
+            pfu[vi] = 0;
+            resident -= 1;
+            if (QUOTAS) rc0 -= vi < bnd;
+            evicted += 1;
+            if (tree) {
+              for (int lv = 0; lv <= TREE_LEVELS; ++lv) atomicSub(&counts[lv_off[lv] + (vi >> (4 + lv))], 1);
+            }
+            if (evicted % 2 == 0) {   // writeback: half the evictions dirty
+              wbacks += 1;
+              pcie_free = add_rn(pcie_free, page_tx);
+            }
+            need_victim = next_victim(resident, rc0);
           }
         }
-        const int vi = hotcold ? bi
-                       : (int)(best & (randomp ? 0x1fffffULL : 0xffffffffULL));
-        const double v_arr = arrival[vi];
-        if (v_arr > clock) {
-          stamp[vi] = counter;
-          if (hotcold) freq[vi] += 1;
-          counter += 1;
-          need_victim = false;
-        } else {
-          arrival[vi] = INF;
-          pfu[vi] = 0;
-          resident -= 1;
-          if (QUOTAS) rc0 -= vi < bnd;
-          evicted += 1;
-          if (tree) {
-            for (int lv = 0; lv <= TREE_LEVELS; ++lv) counts[lv_off[lv] + (vi >> (4 + lv))] -= 1;
-          }
-          if (evicted % 2 == 0) {   // writeback: half the evictions dirty
-            wbacks += 1;
-            pcie_free = add_rn(pcie_free, page_tx);
-          }
-          need_victim = next_victim(resident, rc0);
-        }
+        __syncwarp();   // thread 0's stores and range are visible
       }
     }
   }
@@ -608,6 +717,10 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
     o[7] = evicted;
     o[8] = mul_rn((double)(migrated + wbacks), page_size);
     o[9] = th0;
+    if (lane_info) {
+      lane_info[2 * lane] = scans;
+      lane_info[2 * lane + 1] = (long long)(global_ns() - t_begin);
+    }
   }
 }
 
@@ -617,14 +730,16 @@ extern "C" int lane_replay_launch(const int* pages, const int* preds,
                                   const int* iparams, double* arrival,
                                   int* stamp, unsigned char* pfu, int* freq,
                                   unsigned* prio, int* counts, double* buf,
-                                  double* out, double* steps, int n_lanes,
+                                  double* out, double* steps,
+                                  long long* lane_info, int n_lanes,
                                   int t_max, int span, int buf_len,
                                   int family, int policy, int ft_len,
                                   int lookahead, int steps_len, int quotas,
                                   void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
   if (family < 0 || family > FAM_ORACLE || policy < 0 || policy > POL_HOTCOLD ||
-      steps_len < 0 || (steps_len > 0) != (steps != nullptr && sids != nullptr))
+      span < 1 || span > (1 << 21) || steps_len < 0 ||
+      (steps_len > 0) != (steps != nullptr && sids != nullptr))
     return (int)cudaErrorInvalidValue;
   // one specialisation per (family, policy, quotas): the branches of the
   // other families and policies, and the quota eviction where no lane has
@@ -632,7 +747,8 @@ extern "C" int lane_replay_launch(const int* pages, const int* preds,
   typedef void (*Kernel)(const int*, const int*, const int*, const int*,
                          const int*, const double*, const int*, double*, int*,
                          unsigned char*, int*, unsigned*, int*, double*,
-                         double*, double*, int, int, int, int, int, int);
+                         double*, double*, long long*, int, int, int, int,
+                         int, int);
 #define K1_ROW(F, Q) {lane_replay_kernel<F, POL_LRU, Q>, \
                       lane_replay_kernel<F, POL_RANDOM, Q>, \
                       lane_replay_kernel<F, POL_HOTCOLD, Q>}
@@ -642,11 +758,13 @@ extern "C" int lane_replay_launch(const int* pages, const int* preds,
       {K1_ROW(FAM_DEMAND, true), K1_ROW(FAM_TREE, true),
        K1_ROW(FAM_LEARNED, true), K1_ROW(FAM_ORACLE, true)}};
 #undef K1_ROW
-  kernels[quotas ? 1 : 0][family][policy]<<<n_lanes, THREADS, 0,
+  // the chunk bounds: at most 2^21 / 512 = 4,096 of them, 32 KB
+  const size_t smem = sizeof(u64) * ((span + ROOT_PAGES - 1) / ROOT_PAGES);
+  kernels[quotas ? 1 : 0][family][policy]<<<n_lanes, THREADS, smem,
                                             (cudaStream_t)stream>>>(
       pages, preds, ft, pos, sids, fparams, iparams, arrival, stamp, pfu,
-      freq, prio, counts, buf, out, steps, t_max, span, buf_len, ft_len,
-      lookahead, steps_len);
+      freq, prio, counts, buf, out, steps, lane_info, t_max, span, buf_len,
+      ft_len, lookahead, steps_len);
   return (int)cudaGetLastError();
 }
 

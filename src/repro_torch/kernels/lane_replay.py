@@ -19,6 +19,10 @@ int32 in the reference's layout (``iparams[:, 6:9]``: the dense tenant
 boundary and the quotas q0, q1, q0 = -1 for shared capacity).  Output:
 (L, 10) float64, ``STAT_FIELDS`` then the tenant-0 hit count, and for
 step-clock batches the (L, steps_len) float64 window clocks.
+
+The kernel finds each victim over per-lane bounds of its chunks of
+``ROOT_PAGES`` slots (see ``csrc/lane_replay.cu``); the plain version's
+``argmin`` over the span is the spec it is held to.
 """
 from __future__ import annotations
 
@@ -322,6 +326,12 @@ def _check_kind(family: str, policy: str, span: int, lookahead: int,
     if not 0 <= steps_len <= MAX_LANE_STEPS:
         raise ValueError(f"lane_replay: {steps_len} step windows outside "
                          f"0..{MAX_LANE_STEPS}")
+    # a block DMA reads the faulting page's whole 64 KB block, a tree fault
+    # its whole 2 MB root window: both must lie inside the span
+    whole = ROOT_PAGES if family == "tree" else BLK_PAGES
+    if span % whole:
+        raise ValueError(f"lane_replay: {family} lanes need a span that is a "
+                         f"multiple of {whole}, got {span}")
     if policy == "random" and span + 1 > RANDOM_KEY_SLOTS:
         raise ValueError(
             f"lane_replay: span {span} overflows the random-policy victim "
@@ -368,7 +378,8 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
                 ft: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
                 lookahead: int = 0, sids: Optional[torch.Tensor] = None,
-                steps_len: int = 0, quotas: bool = False):
+                steps_len: int = 0, quotas: bool = False,
+                lane_info: Optional[torch.Tensor] = None):
     """Replay every lane; returns (L, 10) float64 stats, and with
     ``steps_len > 0`` also the (L, steps_len) float64 window clocks.
     Launches K1 for CUDA tensors (counted in ``lane_replay.launches``, and
@@ -379,9 +390,16 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
     ``ft``, ``pos`` and their ``lookahead``.  Step-clock lanes pass
     ``sids``, the window id of every access (``steps_len`` = past the last
     bound), and ``steps_len``; ``quotas`` builds the per-tenant quota
-    eviction for the lanes whose ``iparams[:, 7]`` (q0) is >= 0."""
+    eviction for the lanes whose ``iparams[:, 7]`` (q0) is >= 0, whose
+    tenant boundary must lie on a chunk edge (a multiple of ``ROOT_PAGES``).
+    ``lane_info``, an (L, 2) int64 tensor on the card, receives each lane's
+    victim-search chunk scans and its nanoseconds on the card's global
+    timer (the kernel only: the plain version has no chunks)."""
     _check_kind(family, policy, span, lookahead, steps_len)
     if pages.device.type == "cpu":
+        if lane_info is not None:
+            raise ValueError("lane_replay: lane_info is the kernel's; the "
+                             "plain version has no chunks")
         return lane_replay_plain(pages, preds, fparams, iparams, span,
                                  family=family, policy=policy, ft=ft,
                                  pos=pos, lookahead=lookahead, sids=sids,
@@ -409,11 +427,19 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
                    f"{t.dtype} {tuple(t.shape)} on {t.device}"))
     if not (ROOT_PAGES <= span <= 1 << 21) or buf_len < 1:
         raise ValueError(f"lane_replay: bad span {span} / buf_len {buf_len}")
+    if lane_info is not None and (
+            lane_info.device != pages.device or lane_info.dtype != torch.int64
+            or tuple(lane_info.shape) != (n_lanes, 2)
+            or not lane_info.is_contiguous()):
+        raise ValueError(f"lane_replay: lane_info must be a contiguous int64 "
+                         f"tensor of shape ({n_lanes}, 2) on {pages.device}")
+    if quotas:
+        check_quota_boundaries(iparams.cpu())
     ft_len = ft.shape[1] if family == "oracle" else 0
     lib = build.load("lane_replay")
     fn = lib.lane_replay_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     dev = pages.device
     state_len = span + 1 if family == "oracle" else span
@@ -447,14 +473,27 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
              ptr(sids if steps_len else None), ptr(fparams),
              ptr(iparams), ptr(arrival), ptr(stamp), ptr(pfu), ptr(freq),
              ptr(prio), ptr(counts), ptr(buf), ptr(out), ptr(steps),
-             n_lanes, t_max, span, buf_len, FAMILIES.index(family),
-             POLICIES.index(policy), ft_len, lookahead, steps_len,
-             int(quotas), stream)
+             ptr(lane_info), n_lanes, t_max, span, buf_len,
+             FAMILIES.index(family), POLICIES.index(policy), ft_len,
+             lookahead, steps_len, int(quotas), stream)
     build.check(lib, err, "lane_replay")
     lane_replay.launches += 1
     key = kind_key(family, policy, steps_len, quotas)
     lane_replay.launches_by[key] = lane_replay.launches_by.get(key, 0) + 1
     return out if not steps_len else (out, steps[:, :steps_len])
+
+
+def check_quota_boundaries(iparams: torch.Tensor) -> None:
+    """Raise unless every quota lane's tenant boundary (``iparams[:, 6]``
+    where q0 = ``iparams[:, 7]`` >= 0) lies on a chunk edge, so that each
+    tenant's slots are whole chunks of the kernel's victim search."""
+    bnd, q0 = iparams[:, 6].long(), iparams[:, 7]
+    bad = (q0 >= 0) & (bnd > 0) & (bnd % ROOT_PAGES != 0)
+    if bool(bad.any()):
+        raise ValueError(
+            f"lane_replay: quota lanes {bad.nonzero().flatten().tolist()} "
+            f"have tenant boundaries {bnd[bad].tolist()} off the "
+            f"{ROOT_PAGES}-slot chunk edges")
 
 
 def kind_key(family: str, policy: str, steps_len: int = 0,

@@ -26,11 +26,12 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_geometry)
 from repro_torch.kernels.hlsh_attention import (hlsh_attention,
-                                                hlsh_attention_plain)
+                                                hlsh_attention_plain,
+                                                hlsh_geometry)
 from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_plain,
                                              int4_variant)
-from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, lane_replay,
-                                             lane_replay_plain)
+from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, ROOT_PAGES,
+                                             lane_replay, lane_replay_plain)
 from repro_torch.uvm import golden as G
 from repro_torch.uvm import paper_tables, sweep
 from repro_torch.offload.serve_trace import (build_serve_trace,
@@ -185,6 +186,82 @@ def test_k1_matches_its_plain_version(device, family, policy):
     assert got[3].abs().sum() == 0
 
 
+def _random_lanes(family, seed, span, pages_hi, cap, tenants=None):
+    """Three lanes of uniform random pages below ``pages_hi`` (a fourth,
+    padding lane replays nothing) at capacity ``cap``; ``tenants`` =
+    (boundary, q0, q1) makes them quota lanes.  Returns the positional
+    arguments and keywords of ``lane_replay_plain``."""
+    rng = np.random.default_rng(seed)
+    n_lanes, t_max = 4, 2048
+    pages = rng.integers(0, pages_hi, (n_lanes, t_max)).astype(np.int32)
+    preds = np.where(rng.random((n_lanes, t_max)) < 0.7,
+                     np.roll(pages, -8, axis=1), -1).astype(np.int32)
+    fparams = np.tile(np.array([1400.2, 384.9, 66645.0, 100.0, 100.0, 600.0,
+                                1481.0, 4096.0]), (n_lanes, 1))
+    iparams = np.tile(np.array([t_max, cap, 16, 1, -1, 12345, 2 ** 31 - 1,
+                                -1, -1], dtype=np.int32), (n_lanes, 1))
+    iparams[2, 0] = 1000                    # one short lane
+    iparams[3, 0] = 0                       # one padding lane
+    iparams[:, 3] = family in ("demand", "learned")
+    if tenants is not None:
+        iparams[:, 6:9] = tenants
+    kw = {"family": family, "quotas": tenants is not None}
+    if family == "oracle":
+        ft = np.full((n_lanes, t_max + 64), span, dtype=np.int32)
+        pos = np.zeros((n_lanes, t_max), dtype=np.int32)
+        for lane in range(n_lanes):
+            _, first = np.unique(pages[lane], return_index=True)
+            order = np.sort(first)
+            ft[lane, :len(order)] = pages[lane][order]
+            pos[lane] = np.searchsorted(order, np.arange(t_max), side="right")
+            iparams[lane, 4] = len(order)
+        kw.update(ft=torch.as_tensor(ft), pos=torch.as_tensor(pos),
+                  lookahead=64)
+    args = [torch.as_tensor(pages),
+            torch.as_tensor(preds) if family == "learned" else None,
+            torch.as_tensor(fparams), torch.as_tensor(iparams), span]
+    return args, kw
+
+
+#: K1's victim search at its edges: a span that is no multiple of the
+#: 512-slot chunks (3,008 pages: whole 16-page blocks, so every family but
+#: the tree's, whose faults fill whole root windows); quota lanes whose
+#: tenant boundary is a chunk edge (1024); a capacity of 2 pages, so that
+#: most rounds end at an in-flight victim (the page that just faulted, or
+#: its prefetched extras); hotcold's random retouches tie in freq
+#: throughout
+K1_SEARCH_CASES = {
+    "span-3008": dict(span=3008, pages_hi=3008, cap=900),
+    "quota-edge": dict(span=4096, pages_hi=3000, cap=900,
+                       tenants=(1024, 400, 400)),
+    "in-flight": dict(span=1024, pages_hi=1024, cap=2),
+}
+
+
+@pytest.mark.parametrize("case,family", [
+    (c, f) for c in sorted(K1_SEARCH_CASES) for f in FAMILIES
+    if K1_SEARCH_CASES[c]["span"] % ROOT_PAGES == 0 or f != "tree"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_k1_victim_search_edges_match_its_plain_version(device, case,
+                                                        family, policy):
+    """Every victim K1's chunk search picks is the plain version's argmin
+    over the span: the stats are equal, and each lane scanned at least one
+    chunk per eviction."""
+    args, kw = _random_lanes(family, FAMILIES.index(family),
+                             **K1_SEARCH_CASES[case])
+    want = lane_replay_plain(*args, policy=policy, **kw)
+    dev = [a.to(device) if torch.is_tensor(a) else a for a in args]
+    dev_kw = {k: (v.to(device) if torch.is_tensor(v) else v)
+              for k, v in kw.items()}
+    info = torch.zeros((4, 2), dtype=torch.int64, device=device)
+    got = lane_replay(*dev, 17, policy=policy, lane_info=info, **dev_kw)
+    assert torch.equal(got.cpu(), want)
+    evictions = want[:, 7].long()
+    assert evictions[:3].min() > 0
+    info = info.cpu()
+    assert (info[:, 0] >= evictions).all() and (info[:3, 1] > 0).all()
+
+
 def test_table10_tree_rows_equal_the_legacy_engine(device):
     benches = ("2DCONV", "ATAX")
     rows, _ = paper_tables.run(benches, device=device)
@@ -209,6 +286,50 @@ def test_k2_matches_its_plain_version(device, b, n, d):
     torch.cuda.synchronize()
     want = hlsh_attention_plain(q, q, v, keep)
     assert (got - want).abs().max().item() <= 2e-4
+
+
+#: K2's warp-per-row tiling at its edges: N of 1, 2, 31 and 32 (the path's
+#: 30 between), odd D (7, 13: no float4 rows), D = 64, and rows whose spans
+#: are not 16-byte aligned (N * D = 403 and 210 elements)
+K2_WARP_SHAPES = [(64, 1, 12), (64, 2, 12), (64, 31, 12), (64, 32, 12),
+                  (33, 30, 7), (33, 31, 13), (9, 32, 64), (9, 30, 64)]
+
+
+@pytest.mark.parametrize("b,n,d", K2_WARP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k2_warp_tiling_matches_its_plain_version(device, b, n, d, dtype,
+                                                  offset):
+    """The warp tiling, also on tensors one element into their storage (no
+    16-byte aligned row) and with a row whose keys are all erased (its
+    output is the mean of v): within 2e-4 of the plain version in float32;
+    in bf16 within 3e-2 of the plain version on float32 copies of the same
+    inputs (the bf16 plain version rounds its logits, K2 does not)."""
+    geo = hlsh_geometry(b, n, d, dtype)
+    assert geo.tiling == "warp"
+    g = torch.Generator(device="cpu").manual_seed(b * n + d)
+
+    def draw(shape):
+        base = torch.randn((offset + int(np.prod(shape)),), generator=g)
+        return base.to(device, dtype)[offset:].view(shape)
+    q, v = draw((b, n, d)), draw((b, n, d))
+    keep = (torch.rand((b, n), generator=g) > 0.3).to(device, dtype)
+    keep[0] = 0.0                           # every key of row 0 erased
+    keep[1] = 1.0
+    launches = hlsh_attention.launches
+    got = hlsh_attention(q, q, v, keep)
+    torch.cuda.synchronize()
+    assert hlsh_attention.launches == launches + 1
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        want, tol = hlsh_attention_plain(q, q, v, keep), 2e-4
+    else:
+        want = hlsh_attention_plain(q.float(), q.float(), v.float(),
+                                    keep.float())
+        tol = 3e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    mean_v = v[0].float().mean(0, keepdim=True).expand(n, d)
+    assert (got[0].float() - mean_v).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("b,n,d", [(1, 128, 32), (2, 256, 64),
@@ -460,6 +581,28 @@ def test_k4_bf16_unaligned_heads_match_the_float32_plain_version(device,
     span is not 16-byte aligned and is staged by 4-byte loads."""
     _k4_check(device, (3, 3, 3, 30, 30, 50), torch.bfloat16, causal, 1500,
               float32_plain=True)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_predictor_inference_at_other_window_lengths(device, quantize):
+    """Windows of 34 tokens (the configuration's are 30): inference on the
+    card still launches K2 (and K3 on every weight product when quantized)
+    and agrees with the same model on the CPU, both with torch's draws for
+    that length."""
+    cfg = families.revised_config(40, convergence=0.2, quantize=quantize)
+    assert cfg.attention == "hlsh" and cfg.seq_len != 34
+    model = Predictor(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(np.stack(
+        [rng.integers(0, FEATURE_BUCKETS[f], (256, 34))
+         for f in cfg.features], -1))
+    with torch.no_grad():
+        want = model(x)
+        k2, k3 = hlsh_attention.launches, int4_matmul.launches
+        got = model.to(device)(x.to(device)).cpu()
+    assert hlsh_attention.launches == k2 + 1
+    assert int4_matmul.launches == k3 + (6 if quantize else 0)
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
 
 
 def test_predictor_inference_runs_k2_and_matches_the_cpu(device):

@@ -2,8 +2,10 @@
 against the reference's Pallas kernels in interpret mode and its ``ref``
 oracles, at the reference's test shapes and types and at the predictor's
 shapes, with the tolerances of ``tests/test_kernels.py``; the port's
-device-side int4 packer against the reference's ``fake_quant_tensor``; and
-which variant of K3 and which tiling of K4 each shape takes.
+device-side int4 packer against the reference's ``fake_quant_tensor``;
+which variant of K3 and which tiling of K2 and K4 each shape takes; and a
+model of K1's victim search over chunk bounds against ``argmin`` over the
+span, the rule of K1's plain version.
 (The CUDA kernels themselves are held against these plain versions on the
 card, in ``test_torch_cuda.py``.)"""
 import jax.numpy as jnp
@@ -18,8 +20,12 @@ from repro.kernels import ref as j_ref
 from repro_torch.core.quantize import pack_int4_like_fake_quant
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import hlsh_attention as k2
 from repro_torch.kernels.flash_attention import (WARP_HEADS, WARP_MAX_D,
                                                  WARP_ROWS, flash_geometry)
+from repro_torch.kernels.lane_replay import (BLK_PAGES, ROOT_PAGES,
+                                             check_quota_boundaries,
+                                             lane_replay)
 from repro_torch.kernels.int4_matmul import (VARIANTS, WIDE_MAX_ROWS,
                                              int4_variant, unpack_int4)
 
@@ -218,3 +224,193 @@ def test_flash_geometry_fits_the_kernel(s, d):
     assert flash_geometry(10, s, s, d) == (("warp", WARP_HEADS) if fits
                                            else ("general", 1))
     assert flash_geometry(1, s, s, d).heads == 1
+
+
+@pytest.mark.parametrize("b,n,d,dtype,want", [
+    (4096, 30, 12, torch.float32, ("warp", 4)),     # the predictor's path
+    (4096, 30, 12, torch.bfloat16, ("warp", 4)),
+    (1, 128, 32, torch.float32, ("general", 1)),    # the reference's shapes
+    (2, 256, 64, torch.float32, ("general", 1)),
+    (1, 512, 128, torch.bfloat16, ("general", 1)),
+    (3, 70, 33, torch.float32, ("general", 1)),
+    (2, 30, 12, torch.float32, ("warp", 2)),        # fewer rows than a block
+    (64, 32, 64, torch.float32, ("warp", 2)),       # 24 KB of shared a row
+    (64, 33, 12, torch.float32, ("general", 1)),
+    (64, 30, 65, torch.float32, ("general", 1)),
+])
+def test_hlsh_geometry_at_the_path_and_reference_shapes(b, n, d, dtype, want):
+    assert tuple(k2.hlsh_geometry(b, n, d, dtype)) == want
+
+
+@pytest.mark.parametrize("n", (1, 2, 31, 32, 33, 128))
+@pytest.mark.parametrize("d", (1, 7, 12, 64, 65, 128))
+def test_hlsh_geometry_fits_the_kernel(n, d):
+    """K2 takes the warp-per-row tiling exactly where a row's queries and
+    keys fit one warp (N <= 32, D <= 64), with as many rows a block as its
+    float32 staging of q, k and v fits in 48 KB (at most 4); everything
+    else is general."""
+    geo = k2.hlsh_geometry(100, n, d, torch.float32)
+    if n <= k2.WARP_N and d <= k2.WARP_MAX_D:
+        assert geo.tiling == "warp" and 1 <= geo.rows <= k2.WARP_ROWS
+        assert 3 * 4 * (-(-n * d // 4) * 4) * geo.rows <= k2.WARP_SMEM
+    else:
+        assert geo == ("general", 1)
+    with pytest.raises(ValueError):
+        k2.hlsh_geometry(100, n, d, torch.float16)
+
+
+_IMAX64 = 2 ** 63 - 1
+_NONE = 2 ** 64 - 1          # the kernel's ~0: a chunk with nothing resident
+
+
+class ChunkSearch:
+    """A model of K1's victim search (``csrc/lane_replay.cu``): a lower bound
+    of each chunk's least victim key, lowered by every insertion and left
+    alone by retouches and evictions; a search scans the chunk it starts
+    at, makes that chunk's bound exact, and stops when it is below every
+    other bound of the range (ties to the lower chunk), else moves to the
+    chunk of the least bound."""
+
+    def __init__(self, span, policy):
+        self.span, self.policy = span, policy
+        self.bound = [_NONE] * -(-span // ROOT_PAGES)
+        self.cur, self.scans = 0, 0
+
+    def key(self, i, stamp, freq, prio):
+        if self.policy == "random":
+            return (int(prio[i]) << 21) | i
+        if self.policy == "hotcold":
+            return (int(freq[i]) << 32) | int(stamp[i])
+        return (int(stamp[i]) << 32) | i
+
+    def insert(self, i, stamp, freq, prio):
+        c = i // ROOT_PAGES
+        self.bound[c] = min(self.bound[c], self.key(i, stamp, freq, prio))
+
+    def search(self, lo, hi, resident, stamp, freq, prio):
+        c_lo = lo // ROOT_PAGES
+        c_hi = -(-hi // ROOT_PAGES) if hi > lo else c_lo
+        if not c_lo <= self.cur < c_hi:
+            self.cur = c_lo
+        while True:
+            cur = self.cur
+            slots = range(cur * ROOT_PAGES, min((cur + 1) * ROOT_PAGES, hi))
+            ka, ia = min(((self.key(i, stamp, freq, prio), i) for i in slots
+                          if resident[i]), default=(_NONE, None))
+            kb, ib = min(((self.bound[c], c) for c in range(c_lo, c_hi)
+                          if c != cur), default=(_NONE, None))
+            self.scans += 1
+            self.bound[cur] = ka
+            if ib is None or (ka, cur) < (kb, ib):
+                return ia
+            self.cur = ib
+
+
+def _argmin_victim(policy, lo, hi, resident, stamp, freq, prio):
+    """K1's plain version's rule: ``argmin`` of the policy key over the
+    span, non-resident slots and those outside the tenant's range at the
+    largest key (the first index on ties)."""
+    iota = torch.arange(len(resident), dtype=torch.int64)
+    res = torch.as_tensor(resident) & (iota >= lo) & (iota < hi)
+    if policy == "random":
+        key = (torch.as_tensor(prio) << 21) | iota
+    elif policy == "hotcold":
+        key = (torch.as_tensor(freq) << 32) | torch.as_tensor(stamp)
+    else:
+        key = torch.as_tensor(stamp)
+    return int(torch.argmin(torch.where(res, key, _IMAX64)))
+
+
+@pytest.mark.parametrize("policy", ["lru", "random", "hotcold"])
+@pytest.mark.parametrize("span", [700, 3000, 4096])
+@pytest.mark.parametrize("tenants", [False, True])
+def test_chunk_search_picks_the_argmin_victim(policy, span, tenants):
+    """Random insertions (single pages and root-window bursts stamped in
+    rank order, as a tree emission stamps them), retouches (a new stamp;
+    hotcold also counts a touch, so freqs tie often) and evictions over a
+    span that is or is not a multiple of 512, with and without a tenant
+    boundary on a chunk edge: the chunk search evicts argmin's victim every
+    time, scanning a few chunks per eviction, not the span."""
+    rng = np.random.default_rng(span + 7 * tenants
+                                + ("lru", "random", "hotcold").index(policy))
+    bnd = ROOT_PAGES if tenants else span
+    stamp = np.zeros(span, dtype=np.int64)
+    freq = np.zeros(span, dtype=np.int64)
+    prio = np.zeros(span, dtype=np.int64)
+    resident = np.zeros(span, dtype=bool)
+    model = ChunkSearch(span, policy)
+    counter = evictions = 0
+    for _ in range(3000):
+        op = rng.random()
+        if op < 0.45:                    # insert: a page, or a root burst
+            if rng.random() < 0.2:
+                root = int(rng.integers(0, -(-span // ROOT_PAGES)))
+                idx = [i for i in range(root * ROOT_PAGES,
+                                        min(span, (root + 1) * ROOT_PAGES))
+                       if not resident[i] and rng.random() < 0.3]
+            else:
+                i = int(rng.integers(0, span))
+                idx = [] if resident[i] else [i]
+            for rank, i in enumerate(idx):
+                resident[i] = True
+                stamp[i], freq[i] = counter + rank, 0
+                prio[i] = int(rng.integers(0, 2 ** 32))
+                model.insert(i, stamp, freq, prio)
+            counter += len(idx)
+        elif op < 0.75:                  # retouch a resident page
+            live = np.flatnonzero(resident)
+            if len(live):
+                i = int(rng.choice(live))
+                stamp[i] = counter
+                freq[i] += 1
+                counter += 1
+        else:                            # evict from a tenant's range
+            lo, hi = ((0, bnd) if not tenants or rng.random() < 0.5
+                      else (bnd, span))
+            if not resident[lo:hi].any():
+                continue
+            want = _argmin_victim(policy, lo, hi, resident, stamp, freq,
+                                  prio)
+            got = model.search(lo, hi, resident, stamp, freq, prio)
+            assert got == want
+            resident[got] = False
+            evictions += 1
+    assert evictions > 300
+    assert model.scans < 4 * evictions
+
+
+def test_quota_boundaries_must_lie_on_chunk_edges():
+    """Each tenant's slots must be whole chunks of K1's victim search: the
+    wrapper refuses a quota lane whose tenant boundary is off a chunk edge
+    (a shared-capacity lane, q0 = -1, may have any boundary)."""
+    ip = torch.full((3, 9), -1, dtype=torch.int32)
+    ip[:, 6] = torch.tensor([2 * ROOT_PAGES, -ROOT_PAGES, 700])
+    ip[:2, 7] = 10
+    check_quota_boundaries(ip)
+    ip[2, 7] = 10
+    with pytest.raises(ValueError, match="chunk edges"):
+        check_quota_boundaries(ip)
+
+
+@pytest.mark.parametrize("family,span,ok", [
+    ("demand", 3008, True), ("oracle", 3008, True), ("tree", 3072, True),
+    ("tree", 3008, False), ("learned", 3000, False)])
+def test_spans_hold_whole_blocks_and_tree_roots(family, span, ok):
+    """A block DMA reads its fault's whole 16-page block and a tree fault
+    its whole 512-page root window, so K1 and its plain version refuse a
+    span that would cut one (the sweep's spans are whole root windows)."""
+    pages = torch.zeros((1, 4), dtype=torch.int32)
+    fparams = torch.ones((1, 8), dtype=torch.float64)
+    iparams = torch.tensor([[4, -1, 16, 0, 0, 0, 2 ** 31 - 1, -1, -1]],
+                           dtype=torch.int32)
+    kw = dict(family=family, lookahead=1 if family == "oracle" else 0,
+              ft=torch.full((1, 4), span, dtype=torch.int32),
+              pos=torch.zeros((1, 4), dtype=torch.int32))
+    preds = torch.full((1, 4), -1, dtype=torch.int32)
+    if ok:
+        out = lane_replay(pages, preds, fparams, iparams, span, 17, **kw)
+        assert out.shape == (1, 10) and out[0, 3] == 1     # one fault
+    else:
+        whole = ROOT_PAGES if family == "tree" else BLK_PAGES
+        with pytest.raises(ValueError, match=f"multiple of {whole}"):
+            lane_replay(pages, preds, fparams, iparams, span, 17, **kw)

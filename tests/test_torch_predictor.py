@@ -44,9 +44,9 @@ CONFIGS = {
 }
 
 
-def _inputs(cfg, rows, seed):
+def _inputs(cfg, rows, seed, seq_len=None):
     rng = np.random.default_rng(seed)
-    cols = [rng.integers(0, FEATURE_BUCKETS[f], (rows, cfg.seq_len))
+    cols = [rng.integers(0, FEATURE_BUCKETS[f], (rows, seq_len or cfg.seq_len))
             for f in cfg.features]
     return np.stack(cols, -1).astype(np.int32)
 
@@ -79,6 +79,37 @@ def test_logits_match_reference(name, quantize):
         assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
     else:
         np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def _jax_lsh_draws(cfg, s):
+    """The reference's HLSH draws for windows of ``s`` tokens, as its
+    ``hlsh_plan`` and ``lsh_hash`` draw them under ``PRNGKey(lsh_seed)``."""
+    k_hash, k_sel = jax.random.split(jax.random.PRNGKey(cfg.lsh_seed))
+    r = jax.random.normal(k_hash, (cfg.d_model // cfg.n_heads, cfg.n_hashes,
+                                   cfg.n_buckets // 2), jnp.float32)
+    sel = jax.random.choice(k_sel, s, (max(s // 2, 1),), replace=False)
+    return (torch.tensor(np.asarray(r)),
+            torch.tensor(np.asarray(sel), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("seq_len", [8, 34])
+@pytest.mark.parametrize("name", ["hlsh", "transformer", "transformer-local"])
+def test_logits_match_reference_at_other_window_lengths(name, seq_len):
+    """Windows shorter and longer than ``cfg.seq_len``: the positional
+    table and the HLSH draws follow the input's length, as the reference's
+    do (HLSH with the reference's draws for that length loaded)."""
+    cfg = CONFIGS[name](False)
+    assert seq_len != cfg.seq_len
+    params, model = _pair(cfg)
+    if cfg.attention == "hlsh":
+        model.set_lsh_draws(seq_len, *_jax_lsh_draws(cfg, seq_len))
+    x = _inputs(cfg, 256, seed=11, seq_len=seq_len)
+    want = np.asarray(jax.jit(lambda p, xb: j_model.apply(cfg, p, xb))(
+        params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model(torch.as_tensor(x)).numpy()
+    assert got.shape == want.shape == (256, N_CLASSES)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
