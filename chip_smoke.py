@@ -4,8 +4,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
 learned-prefetch sweep, the paper's tree-vs-learned tables, the
 oversubscription matrix, the serving matrix, the multi-tenant matrix, the
-predictor-family smoke and a full-width Transformer-family sweep on the
-card:
+predictor-family smoke, a full-width Transformer-family sweep and the
+paper's predictor tables on the card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -17,8 +17,9 @@ card:
    variant (maximum difference 0), with both timed;
 4. K2 (HLSH attention), K3 (int4 matmul) and K4 (flash attention)
    against their plain versions, at the reference's test shapes and types,
-   at the predictor's shapes and at the edges of K2's and K4's tilings (K2
-   in both tilings and both types) and K3's variants;
+   at the predictor's shapes, at the predictor tables' shapes and at the
+   edges of K2's and K4's tilings (K2 in both tilings and both types) and
+   K3's variants;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
    served on the card (the quantized simplified predictor's weight products
@@ -54,25 +55,34 @@ card:
     with no selector table, so every half-memory cell probes on K1; each
     resolved policy equals the legacy engine's probe, cycles included;
     then top-1, F1 and coverage per bench against the simplified family;
-14. kernel times from CUDA events beside the plain versions and a PyTorch
+14. the paper's predictor tables (Tables 1-8, Figs 5, 6 and 9 of
+    ``repro_torch.core.predictor_tables``) at the reference's sizes, 76
+    distinct fits on the card (K4 on every Transformer's evaluation, K2 on
+    Table 5's HLSH rows, K3 on Table 8's quantized rows), each table's rows
+    and columns and its metrics checked, the reference's own claims
+    reported; then Fig 10 (tree and learned at 1, 2, 5 and 10 us per
+    prediction on the 11 benchmarks) on the main path's prediction cache,
+    training nothing, one bench's rows held against the legacy engine;
+15. kernel times from CUDA events beside the plain versions and a PyTorch
     yardstick: K1 against its plain version on the tables' tree batch
     (which never evicts: its slowest lane's time per access gives K1's
     chain bound, the longest lane's accesses at that rate), K1 per kernel
     variant on the largest batch of each path (the step-clock batches also
     without their capture, and through the quota specialisation), each with
     its slowest lane's accesses, evictions, victim-search chunk scans and
-    covered slots, K1's per-eviction cost and chunk scans against the span
-    its search covers, K1 against its plain version on the main path's
-    learned batch, K2 (float32 and bf16, with its tiling), K3 and K4 at the
-    predictor's shapes, each per call through its wrapper and as device
-    time per launch (a CUDA graph of 20 launches; the profiler where a
-    capture fails), in turns with its PyTorch call and its plain version,
-    then the ``kernels`` line and the result line.
+    covered slots, K1 on the golden quota batches with their chain bound,
+    K1's per-eviction cost and chunk scans against the span its search
+    covers, K1 against its plain version on the main path's learned batch,
+    K2 (float32 and bf16, with its tiling), K3 and K4 at the predictor's
+    shapes and the predictor tables', each per call through its wrapper and
+    as device time per launch (a CUDA graph of 20 launches; the profiler
+    where a capture fails), in turns with its PyTorch call and its plain
+    version, then the ``kernels`` line and the result line.
 
-Each of the seven driven paths (5, 6, 7, 10, 11, 12, 13) zeroes the launch
-counters just before it and reads them just after.  The legacy engine's
-replays and the plain versions run in a pool of worker processes on the
-host.
+Each of the eight driven paths (5, 6, 7, 10, 11, 12, 13, 14) zeroes the
+launch counters just before it and reads them just after.  The legacy
+engine's replays and the plain versions run in a pool of worker processes
+on the host.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` (``--out`` also writes the rows
 and kernel records as JSON).  Exits non-zero without a result line when no
@@ -132,14 +142,17 @@ K2_ATOL = {"float32": 2e-4, "bfloat16": 3e-2}
 K4_ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
 K3_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: K2's cases (B, N, D) and types: the path's shape first (timed in phase
-#: 14), the warp-per-row tiling's edges, and the reference's test shapes
-#: (the general tile); together both tilings in both types
+#: 15), the warp-per-row tiling's edges, the reference's test shapes (the
+#: general tile) and Table 5's HLSH rows (512 windows x 4 heads of 50
+#: dims); together both tilings in both types
 K2_REF_SHAPES = ((1, 128, 32), (2, 256, 64), (1, 512, 128))
+K2_TABLE5_SHAPE = (2048, 30, 50)
 K2_CASES = tuple(((4096, 30, 12), dt) for dt in ("float32", "bfloat16")) + (
     ((64, 1, 12), "float32"), ((16, 32, 64), "float32"),
     ((33, 31, 13), "float32"), ((33, 31, 13), "bfloat16"),
     ((2, 256, 64), "float32")) + tuple(
-    (shape, "bfloat16") for shape in K2_REF_SHAPES)
+    (shape, "bfloat16") for shape in K2_REF_SHAPES) + tuple(
+    (K2_TABLE5_SHAPE, dt) for dt in ("float32", "bfloat16"))
 #: the reference's test shapes: K4 (B, H, Hkv, Sq, Sk, D), K3 (M, K, N)
 K4_REF_SHAPES = ((1, 2, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64),
                  (1, 8, 1, 128, 384, 128), (1, 4, 4, 256, 128, 32))
@@ -166,10 +179,21 @@ K4_EDGE_SHAPES = ((2, 5, 5, 1, 1, 1), (2, 5, 5, 31, 31, 49),
                   (2, 5, 5, 29, 29, 128), (2, 4, 2, 33, 29, 50))
 K3_PATH_SHAPES = ((4096 * 30, 12, 12), (4096 * 30, 12, 48),
                   (4096 * 30, 48, 12), (4096, 12, 20000), (4096, 12, 19999))
+#: the predictor tables' shapes at the evaluation batch of 512 windows: K4
+#: on Fig 5's single-feature Transformers (4 heads of 2 to 8 dims) and on
+#: the revised rows of Table 8 and Fig 9 (1 head of 12); K3 on Table 8's
+#: quantized layer products (the head's N is each bench's class count,
+#: found in phase 4)
+K4_TABLE_SHAPES = tuple((512, 4, 4, 30, 30, d) for d in (2, 3, 4, 6, 8)) + (
+    (512, 1, 1, 30, 30, 12),)
+K3_TABLE8_SHAPES = ((512 * 30, 12, 12), (512 * 30, 12, 48),
+                    (512 * 30, 48, 12))
+#: the bench whose Fig 10 rows are held against the legacy engine
+FIG10_CHECK_BENCH = "NW"
 #: the Transformer family's learned cells (phase 13)
 FAMILY = "transformer"
 #: the bench whose quantized simplified inference is timed with and without
-#: K3 (phase 14): an HLSH bench with many windows
+#: K3 (phase 15): an HLSH bench with many windows
 INFER_BENCH = "NW"
 #: published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the
 #: tensor cores
@@ -547,8 +571,10 @@ def main(argv=None) -> int:
 def smoke(args, pool) -> int:
     import numpy as np
     import torch
+    from repro_torch.core import predictor_tables
     from repro_torch.core.features import cluster_trace, delta_convergence
     from repro_torch.core.service import PredictorService
+    from repro_torch.core.vocab import DeltaVocab
     from repro_torch.kernels import build
     from repro_torch.kernels import lane_replay as k1
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -725,7 +751,7 @@ def smoke(args, pool) -> int:
     k2_err = {"float32": 0.0, "bfloat16": 0.0}
     k2_bf16_plain = {}
     k2_geos = {}
-    k2_main = None
+    k2_inputs = {}
     for (b, n, d), dt in K2_CASES:
         dt = getattr(torch, dt)
         q = cuda_randn(rng, (b, n, d), dt)
@@ -751,8 +777,7 @@ def smoke(args, pool) -> int:
         k2_err[name] = max(k2_err[name], err)
         geo = hlsh_geometry(b, n, d, dt)
         k2_geos.setdefault((geo.tiling, name), []).append((b, n, d))
-        if k2_main is None:
-            k2_main = (q, v, keep)
+        k2_inputs.setdefault(((b, n, d), name), (q, v, keep))
     check(len(k2_geos) == 4, f"K2's cases reach only {sorted(k2_geos)}")
     # K4 at the reference's shapes x causal x both types, and at the
     # Transformer family's shape in its float32
@@ -763,12 +788,24 @@ def smoke(args, pool) -> int:
     k4_cases += [(shape, causal, torch.float32)
                  for shape in (K4_PATH_SHAPE,) + K4_EDGE_SHAPES
                  for causal in (False, True)]
+    k4_cases += [(shape, False, torch.float32) for shape in K4_TABLE_SHAPES]
     for shape, causal, dt in k4_cases:
         err, _ = k4_against_plain(rng, shape, causal, dt)
         name = str(dt).split(".")[1]
         check(err <= K4_ATOL[name], f"K4 {shape} causal={causal} {name}: "
               f"max error {err} (limit {K4_ATOL[name]})")
         k4_err[name] = max(k4_err[name], err)
+    # the tables' shapes in bf16, against the float32 plain version on the
+    # same inputs, all in the warp tiling
+    for shape in K4_TABLE_SHAPES:
+        check(flash_geometry(shape[0] * shape[1], 30, 30, shape[-1]).tiling
+              == "warp", f"K4 {shape} is not in the warp tiling")
+        _, qkv = k4_against_plain(rng, shape, False, torch.bfloat16)
+        err = float((flash_attention(*qkv).float() - flash_attention_plain(
+            *(t.float() for t in qkv))).abs().max())
+        check(err <= K4_ATOL["bfloat16"], f"K4 bf16 {shape}: max error {err} "
+              "from the float32 plain version")
+        k4_err["bfloat16"] = max(k4_err["bfloat16"], err)
     # bf16 at the path's shape, held against the plain version on float32
     # copies of the same inputs: the bf16 plain version rounds its logits
     # and probabilities to bf16 where K4 keeps them in float32, so at S = 30
@@ -793,6 +830,13 @@ def smoke(args, pool) -> int:
     k3_cases = [(shape, dt, False) for shape in K3_REF_SHAPES
                 for dt in (torch.float32, torch.bfloat16)]
     k3_cases += [(shape, torch.float32, True) for shape in K3_PATH_SHAPES]
+    # Table 8's layer products and its head at each bench's class count
+    table8_classes = {b: DeltaVocab.build(cluster_trace(
+        predictor_tables.get_trace(b), "sm"), distance=1).n_classes
+        for b in predictor_tables.PREDICTOR_BENCHMARKS}
+    k3_table8 = K3_TABLE8_SHAPES + tuple(
+        (512, 12, n) for n in sorted(set(table8_classes.values())))
+    k3_cases += [(shape, torch.float32, True) for shape in k3_table8]
     k3_cases += [(shape, getattr(torch, dt), False)
                  for shape, dt in K3_EDGE_CASES]
     reached = {(int4_variant(m, kd, n + n % 2, dt), dt)
@@ -843,7 +887,11 @@ def smoke(args, pool) -> int:
           + ", ".join(f"{c} {e['vs_float32_plain']:.3g} / "
                       f"{e['vs_plain']:.3g}" for c, e in k4_bf16_path.items())
           + f"); K3 on {len(k3_cases)} cases, relative "
-          f"error {k3_err} (limits {K3_RTOL})", flush=True)
+          f"error {k3_err} (limits {K3_RTOL}; Table 8's shapes "
+          + ", ".join(f"{(m, kd, n)} "
+                      f"[{int4_variant(m, kd, n + n % 2, torch.float32)}]"
+                      for m, kd, n in k3_table8)
+          + ")", flush=True)
 
     # ---- phase 5: the main path -----------------------------------------
     for bench in BENCHES:
@@ -1356,7 +1404,175 @@ def smoke(args, pool) -> int:
           "(reported, not a check: the port's training draws are torch's)",
           flush=True)
 
-    # ---- phase 14: kernel times -----------------------------------------
+    # ---- phase 14: the paper's predictor tables --------------------------
+    # Tables 1-8 and Figs 5, 6, 9 at the reference's sizes (150 steps, 400
+    # for revised cells; 10,000 training and 3,000 evaluation windows; full
+    # traces), each distinct cell fitted once; then Fig 10 on the main
+    # path's prediction cache.  Launches are read per table
+    predictor_tables.clear_memo()
+    reset_counts()
+    t0 = time.perf_counter()
+    ptables = {}
+    ptable_stats = {}
+    for name, run in predictor_tables.TABLES.items():
+        before, n_fits = read_counts(), predictor_tables.memo_size()
+        t1 = time.perf_counter()
+        ptables[name] = run(device="cuda")
+        torch.cuda.synchronize()
+        after = read_counts()
+        new_fits = predictor_tables.fitted_cells()[n_fits:]
+        ptable_stats[name] = {
+            "seconds": time.perf_counter() - t1, "fits": len(new_fits),
+            "train_s": sum(c["train_seconds"] for c in new_fits),
+            "eval_s": sum(c["eval_seconds"] for c in new_fits),
+            "launches": {k: after[k] - before[k] for k in after}}
+    fits = predictor_tables.fitted_cells()
+    t1 = time.perf_counter()
+    before = read_counts()
+    fig10_cells = paper_tables.fig10_cells(BENCHES)
+    f10_grid = sweep.run_sweep(fig10_cells, device="cuda")
+    torch.cuda.synchronize()
+    ptables["fig10"] = paper_tables.fig10_rows(f10_grid)
+    after = read_counts()
+    ptable_stats["fig10"] = {
+        "seconds": time.perf_counter() - t1, "fits": sum(
+            1 for r in f10_grid if r["train_seconds"] or "fit_top1" in r),
+        "train_s": sum(r["train_seconds"] for r in f10_grid),
+        "eval_s": sum(r["predict_seconds"] for r in f10_grid),
+        "launches": {k: after[k] - before[k] for k in after}}
+    ptables_s = time.perf_counter() - t0
+    ptables_counts = path_launches["predictor-tables"] = read_counts()
+    # the rows each reference script prints
+    expect_rows = {"table1": 9, "table2": 10, "table3": 8, "table4": 8,
+                   "table5": 8, "table67": 9, "table8": 9, "fig5": 16,
+                   "fig6": 6, "fig9": 20,
+                   "fig10": (len(BENCHES) + 1) * len(paper_tables.LATENCIES)}
+    for name, rows_ in ptables.items():
+        cols = predictor_tables.COLUMNS.get(
+            name, ["bench", "latency_us", "ipc_normalized"])
+        check(len(rows_) == expect_rows[name], f"{name}: {len(rows_)} rows, "
+              f"the reference's {expect_rows[name]}")
+        check(all(list(r) == cols for r in rows_),
+              f"{name}: columns {list(rows_[0])} != {cols}")
+        for r in rows_:
+            for c in cols[1:]:
+                v = r[c]
+                if isinstance(v, str) or c in ("distance", "latency_us"):
+                    continue                    # an axis, not a metric
+                if c == "degradation":
+                    ok = math.isfinite(v) and -1.0 <= v <= 1.0
+                elif name in ("table67", "fig10"):
+                    ok = math.isfinite(v) and v > 0
+                else:
+                    ok = math.isfinite(v) and 0.0 <= v <= 1.0
+                check(ok, f"{name} {r['bench']}: {c} = {v}")
+    n_fits = sum(st["fits"] for st in ptable_stats.values())
+    check(n_fits == len(fits) == 76, f"the predictor tables fitted {n_fits} "
+          f"cells ({len(fits)} distinct keys), not 76")
+    check(all(c["devices"] == ["cuda:0"] for c in fits),
+          "a table's predictor was not on cuda: "
+          f"{sorted({tuple(c['devices']) for c in fits})}")
+    for name, kernel in (("table1", "flash_attention"),
+                         ("table5", "hlsh_attention"),
+                         ("table8", "int4_matmul"),
+                         ("fig5", "flash_attention")):
+        check(ptable_stats[name]["launches"][kernel] > 0,
+              f"{kernel} never launched for {name}: "
+              f"{ptable_stats[name]['launches']}")
+    f10_launches = ptable_stats["fig10"]["launches"]
+    check(ptable_stats["fig10"]["fits"] == 0
+          and all(r["train_seconds"] == 0 for r in f10_grid),
+          "Fig 10 trained a predictor: its predictions must come from the "
+          "main path's cache")
+    check(f10_launches["lane_replay"] > 0 and not any(
+        f10_launches[k] for k in f10_launches if k != "lane_replay"),
+        f"Fig 10 launches {f10_launches}: K1 only")
+    check(all(r["backend"] == "cuda" for r in f10_grid),
+          "a Fig 10 row did not run on the cuda backend")
+    # Fig 10's rows of one bench against the legacy engine on the same
+    # predictions (its tree row and its four learned rows)
+    fchk = [(c, r) for c, r in zip(fig10_cells, f10_grid)
+            if c.bench == FIG10_CHECK_BENCH]
+    freqs = [ReplayRequest(tr, pf, cfg) for tr, cfg, pf, _ in
+             (sweep.prepare_cell(c, device="cuda") for c, _ in fchk)]
+    for (cell, r), want in zip(fchk, pool.map(legacy_replay, freqs)):
+        what = f"Fig 10 {cell.bench}/{cell.prefetcher}/{cell.prediction_us}"
+        same_row(r, want, what)
+        check(abs(r["ipc"] - want.ipc) <= 1e-6 * want.ipc,
+              f"{what}: ipc {r['ipc']} != legacy {want.ipc}")
+    ptrain = sum(c["train_seconds"] for c in fits)
+    peval = sum(c["eval_seconds"] for c in fits)
+    print(f"phase 14 {card}: the paper's predictor tables in {ptables_s:.1f} "
+          f"s, {n_fits} fits on cuda (training {ptrain:.1f} s, set-up and "
+          f"evaluation {peval:.1f} s); launches {ptables_counts}; Fig 10 "
+          f"trained nothing (K1 launches {f10_launches['lane_replay']}) and "
+          f"its {len(fchk)} {FIG10_CHECK_BENCH} rows equal the legacy engine",
+          flush=True)
+    titles = {
+        "table1": "Table 1: Transformer-based UVM page prediction",
+        "table2": "Table 2: clustering ablation",
+        "table3": "Table 3: prediction distance",
+        "table4": "Table 4: Transformer vs FC (shuffled)",
+        "table5": "Table 5: full vs HLSH attention",
+        "table67": "Tables 6-7: memory footprint (full vs revised)",
+        "table8": "Table 8: Transformer (T) vs revised predictor (R)",
+        "fig5": "Fig 5: single-feature prediction",
+        "fig6": "Fig 6: delta convergence vs shuffle sensitivity",
+        "fig9": "Fig 9: predictor comparison",
+        "fig10": "Fig 10: prediction-overhead sensitivity (IPC vs "
+                 "UVMSmart)"}
+    for name, rows_ in ptables.items():
+        st = ptable_stats[name]
+        print(f"== {titles[name]} == {st['seconds']:.1f} s, {st['fits']} "
+              f"fits (training {st['train_s']:.1f} s, inference "
+              f"{st['eval_s']:.1f} s), launches K2 "
+              f"{st['launches']['hlsh_attention']} / K3 "
+              f"{st['launches']['int4_matmul']} / K4 "
+              f"{st['launches']['flash_attention']} / K1 "
+              f"{st['launches']['lane_replay']}")
+        cols = list(rows_[0])
+        print(",".join(cols))
+        for r in rows_:
+            print(",".join(f"{r[c]:.4f}" if isinstance(r[c], float)
+                           else str(r[c]) for c in cols))
+    # the reference's own claims, reported and not checked (the port
+    # trains with torch's draws)
+    t4 = {(r["bench"], r["predictor"]): r["top1"] for r in ptables["table4"]}
+    fc_loss = {b: t4[(b, "fc")] - t4[(b, "transformer")]
+               for b in predictor_tables.TABLE4_BENCHES}
+    print("phase 14 (reported): Table 4, FC top-1 less Transformer top-1 on "
+          "shuffled inputs: " + ", ".join(f"{b} {v:+.4f}"
+                                          for b, v in fc_loss.items())
+          + "; the reference's claim (ATAX/BICG survive FC, NW/Backprop "
+          "need attention: the difference is higher on both of the first "
+          "two than on both of the last two) "
+          + ("holds" if min(fc_loss["ATAX"], fc_loss["BICG"])
+             > max(fc_loss["NW"], fc_loss["Backprop"]) else "does not hold"))
+    f6 = ptables["fig6"]
+    hi = [r["degradation"] for r in f6 if r["convergence"] >= 0.7]
+    lo = [r["degradation"] for r in f6 if r["convergence"] < 0.7]
+    print("phase 14 (reported): Fig 6, degradation (ordered less shuffled "
+          "top-1) against delta convergence: " + ", ".join(
+              f"{r['bench']} {r['convergence']:.3f} -> "
+              f"{r['degradation']:+.4f}" for r in f6)
+          + "; high-convergence benches degrade less than low ones: "
+          + ("yes" if hi and lo and max(hi) < min(lo) else "no"))
+    t8 = ptables["table8"]
+    gaps = [r["top1_R"] - r["top1_T"] for r in t8]
+    print("phase 14 (reported): Table 8, revised (R) against Transformer "
+          f"(T) top-1: mean T {np.mean([r['top1_T'] for r in t8]):.4f}, "
+          f"mean R {np.mean([r['top1_R'] for r in t8]):.4f}, R - T from "
+          f"{min(gaps):+.4f} to {max(gaps):+.4f}; R >= T on "
+          f"{sum(g >= 0 for g in gaps)} of {len(t8)} benches")
+    t67 = ptables["table67"]
+    print("phase 14 (reported): Tables 6-7, full (fp32) against revised "
+          "(4-bit) footprint at a batch of "
+          f"{predictor_tables.FOOTPRINT_BATCH}: " + ", ".join(
+              f"{r['bench']} {r['full_total_mb']:.2f} / "
+              f"{r['revised_total_mb']:.3f} MB ({r['ratio']:.0f}x)"
+              for r in t67), flush=True)
+
+    # ---- phase 15: kernel times -----------------------------------------
     # K1 on the tables' tree batch (11 scale-1.0 lanes, no evictions)
     # against its plain version: the tree family at a driven path's shapes.
     # Its slowest lane sets K1's chain bound: a lane is one dependent chain
@@ -1389,11 +1605,27 @@ def smoke(args, pool) -> int:
         tables_chain_bound_ms=chain_bound_ms(t_batch),
         tables_slowest_lane=t_lane, tables_max_abs_err=err)
     tv = variants[("tree", "lru")]
-    print(f"phase 14 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
+    print(f"phase 15 {card}: K1 tree/lru {tv['tables_ms']:.3f} ms per launch "
           f"on the tables' tree batch ({len(tidx)} lanes, "
           f"{tv['tables_accesses']} accesses; {lane_text(t_lane)}), equal to "
           f"its plain version ({tv['tables_plain_ms']:.1f} ms on the host); "
           f"chain bound {access_us * 1e3:.1f} ns per access", flush=True)
+    # K1 on each golden quota batch (the quota kinds run on no timed path
+    # batch of their own): its slowest lane and its chain bound
+    for _, batch in gbatches:
+        key = variant_key(batch)
+        if "quotas" not in key:
+            continue
+        _, lane = k1_lanes(batch)
+        v = variants[key]
+        v.update(golden_slowest_lane=lane,
+                 golden_chain_bound_ms=chain_bound_ms(batch))
+        v["golden_chain_share"] = v["golden_chain_bound_ms"] / v["golden_ms"]
+        print(f"phase 15 {card}: K1 {'/'.join(key)} {v['golden_ms']:.3f} ms "
+              f"per launch on its golden batch ({v['golden_lanes']} lanes, "
+              f"{v['golden_accesses']} accesses; {lane_text(lane)}; chain "
+              f"bound {v['golden_chain_bound_ms']:.3f} ms, "
+              f"{100 * v['golden_chain_share']:.0f}% of it)", flush=True)
     # K1 per family x policy on the largest batch of the matrix
     for key, v in variants.items():
         if len(key) > 2:
@@ -1410,7 +1642,7 @@ def smoke(args, pool) -> int:
                  bound_ms=k1_bound_ms(batch),
                  chain_bound_ms=chain_bound_ms(batch), slowest_lane=lane)
         v["chain_share"] = v["chain_bound_ms"] / v["ms"]
-        print(f"phase 14 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
+        print(f"phase 15 {card}: K1 {key[0]}/{key[1]} {v['ms']:.2f} ms per "
               f"launch on the matrix's largest batch ({len(big)} lanes, "
               f"{v['matrix_accesses']} accesses; {lane_text(lane)}; chain "
               f"bound {v['chain_bound_ms']:.2f} ms, "
@@ -1447,7 +1679,7 @@ def smoke(args, pool) -> int:
                 same = "without steps" if path == "serve" else "as quotas"
                 v[f"{path}_ms_{same.replace(' ', '_')}"] = cuda_ms(
                     lambda: lane_replay(**o_args), reps=1)
-            print(f"phase 14 {card}: K1 {'/'.join(key)} "
+            print(f"phase 15 {card}: K1 {'/'.join(key)} "
                   f"{v[path + '_ms']:.2f} ms per launch on {path}-full's "
                   f"largest batch ({v[path + '_lanes']} lanes, "
                   f"{v[path + '_accesses']} accesses, at most "
@@ -1488,7 +1720,7 @@ def smoke(args, pool) -> int:
             "scans_per_eviction": lane["chunk_scans"] / ev,
             "us_per_eviction": ms * 1e3 / ev})
     flat = scan_span[-1]["us_per_eviction"] / scan_span[0]["us_per_eviction"]
-    print(f"phase 14 {card}: K1 tree/lru on one ServeDecode lane "
+    print(f"phase 15 {card}: K1 tree/lru on one ServeDecode lane "
           f"({int(base_out[0, 7])} evictions in {len(tr)} accesses, "
           f"{tr.working_set_pages} pages of working set, the same at every "
           "span) against the slots its victim search covers: " + ", ".join(
@@ -1527,72 +1759,81 @@ def smoke(args, pool) -> int:
                 "share_of_bound": None if dev is None else bound_ms / dev,
                 "timing": t["kernel"]["method"]}
 
-    # K2: the yardstick is one scaled_dot_product_attention call on
-    # pre-masked q/k (the port never calls it).  k holds q's values in a
-    # tensor of its own, as on the path (the layer's shared QK is split into
-    # head-major copies), so every call reads q, k, v and keep and writes
-    # the output
-    q, v, keep = k2_main
-    b, n, d = q.shape
-    k = q.clone()
-    qm = (q * keep[..., None]).contiguous()
-    km = qm.clone()
-    k2_bytes = 4 * b * n * d * 4 + b * n * 4
-    k2_geo = hlsh_geometry(b, n, d, q.dtype).name()
-
-    def k2_calls(copies):
-        """K2, its PyTorch call and its plain version over ``copies`` of
-        (q, k, v, keep, q and k pre-masked)."""
-        return {
+    def k2_record(q, v, keep):
+        """K2 at q's shape and type, its PyTorch call and its plain version
+        in turns, over rotating copies: one record of the kernels line.
+        The yardstick is one scaled_dot_product_attention call on
+        pre-masked q/k (the port never calls it).  k holds q's values in a
+        tensor of its own, as on the path (the layer's shared QK is split
+        into head-major copies), so every call reads q, k, v and keep and
+        writes the output"""
+        b, n, d = q.shape
+        k = q.clone()
+        qm = (q * keep[..., None]).contiguous()
+        km = qm.clone()
+        nbytes = (4 * b * n * d + b * n) * q.element_size()
+        copies = copies_of((q, k, v, keep, qm, km), nbytes)
+        t = timed_in_turns({
             "kernel": rotating(lambda q, k, v, kp, qm, km: hlsh_attention(
                 q, k, v, kp), copies),
             "library": rotating(lambda q, k, v, kp, qm, km: sdpa(qm, km, v),
                                 copies),
             "plain": rotating(lambda q, k, v, kp, qm, km:
-                              hlsh_attention_plain(q, k, v, kp), copies)}
+                              hlsh_attention_plain(q, k, v, kp), copies)},
+            reps=50)
+        # the products this keep mask needs: a logit for each pair of kept
+        # query and kept key (an erased one is 0), a value product for
+        # every pair
+        kept = (keep > 0).sum(1).double()
+        flops = float((2 * d * kept * kept + 2 * d * n * n).sum())
+        by_bytes = nbytes / HBM_BYTES_S * 1e3
+        by_ops = flops / F32_FLOPS * 1e3
+        bound = max(by_bytes, by_ops)
+        return {"shape": [b, n, d], "dtype": str(q.dtype).split(".")[1],
+                "variant": hlsh_geometry(b, n, d, q.dtype).name(),
+                "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                **timing_fields(t, bound)}
 
-    k2_t = timed_in_turns(
-        k2_calls(copies_of((q, k, v, keep, qm, km), k2_bytes)), reps=50)
-    # the products this keep mask needs: a logit for each pair of kept
-    # query and kept key (an erased one is 0), a value product for every
-    # pair
-    kept = (keep > 0).sum(1).double()
-    k2_flops = float((2 * d * kept * kept + 2 * d * n * n).sum())
-    k2_bound_bytes = k2_bytes / HBM_BYTES_S * 1e3
-    k2_bound_ops = k2_flops / F32_FLOPS * 1e3
-    k2_bound = max(k2_bound_bytes, k2_bound_ops)
-    # K2 in bf16 at the same shape and keep mask
-    k2_bf16_in = tuple(t.to(torch.bfloat16) for t in (q, k, v, keep, qm, km))
-    k2b_t = timed_in_turns(k2_calls(copies_of(k2_bf16_in, k2_bytes / 2)),
-                           reps=50)
-    b2_bytes = (4 * b * n * d + b * n) * 2 / HBM_BYTES_S * 1e3
-    k2b_bound = max(b2_bytes, k2_bound_ops)
-    k2_bf16 = {"dtype": "bfloat16", "shape": [b, n, d],
-               "max_abs_err": k2_err["bfloat16"],
-               "max_abs_err_from_bf16_plain": k2_bf16_plain,
-               "variant": k2_geo,
-               "bound_ms": k2b_bound,
-               "bound_by": "bytes" if b2_bytes >= k2_bound_ops
-               else "operations",
-               **timing_fields(k2b_t, k2b_bound)}
-    # K4 at the Transformer family's shape; the yardstick is one
-    # scaled_dot_product_attention call on the same (B, H, S, D) tensors
-    fb, fh, _, fs, _, fd = K4_PATH_SHAPE
-    _, (fq, fk, fv) = k4_against_plain(rng, K4_PATH_SHAPE, False,
-                                        torch.float32)
-    k4_t = timed_in_turns({
-        "kernel": lambda: flash_attention(fq, fk, fv),
-        "library": lambda: sdpa(fq, fk, fv),
-        "plain": lambda: flash_attention_plain(fq, fk, fv)})
-    k4_bytes = 4 * fb * fh * fs * fd * 4 / HBM_BYTES_S * 1e3
-    k4_ops = 4 * fb * fh * fs * fs * fd / F32_FLOPS * 1e3
-    k4_bound = max(k4_bytes, k4_ops)
-    k4_fields = timing_fields(k4_t, k4_bound)
-    k4_variant = flash_geometry(fb * fh, fs, fs, fd).name()
-    # K3 at the classification head's shape and the layer products; the
-    # yardstick is one torch.matmul on the dequantized weight
-    k3_times = []
-    for m, kd, n3 in ((4096, 12, 20000),) + K3_PATH_SHAPES[:3]:
+    def k4_record(shape):
+        """K4 at a (B, H, H, S, S, D) float32 shape, its PyTorch call (one
+        scaled_dot_product_attention call on the same tensors) and its
+        plain version in turns, over rotating copies."""
+        b, h, _, s_, _, d = shape
+        _, qkv = k4_against_plain(rng, shape, False, torch.float32)
+        nbytes = 4 * b * h * s_ * d * 4
+        copies = copies_of(qkv, nbytes)
+        t = timed_in_turns({
+            "kernel": rotating(flash_attention, copies),
+            "library": rotating(sdpa, copies),
+            "plain": rotating(flash_attention_plain, copies)})
+        by_bytes = nbytes / HBM_BYTES_S * 1e3
+        by_ops = 4 * b * h * s_ * s_ * d / F32_FLOPS * 1e3
+        bound = max(by_bytes, by_ops)
+        return {"shape": list(shape), "dtype": "float32",
+                "variant": flash_geometry(b * h, s_, s_, d).name(),
+                "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                **timing_fields(t, bound)}
+
+    # K2 at the main path's shape in both types (the same inputs) and at
+    # Table 5's HLSH rows
+    q, v, keep = k2_inputs[(K2_CASES[0][0], "float32")]
+    k2_main = k2_record(q, v, keep)
+    k2_bf16 = dict(k2_record(*(t.to(torch.bfloat16) for t in (q, v, keep))),
+                   max_abs_err=k2_err["bfloat16"],
+                   max_abs_err_from_bf16_plain=k2_bf16_plain)
+    k2_table5 = dict(k2_record(*k2_inputs[(K2_TABLE5_SHAPE, "float32")]),
+                     path="predictor tables, Table 5")
+    # K4 at the Transformer family's shape (one call moves 393 MB, so one
+    # copy) and at the tables' shapes
+    k4_main = k4_record(K4_PATH_SHAPE)
+    k4_tables = [dict(k4_record(shape), path="predictor tables")
+                 for shape in K4_TABLE_SHAPES]
+    def k3_record(m, kd, n3):
+        """K3 on a packed (K, N) weight, its PyTorch call (one torch.matmul
+        on the dequantized weight) and its plain version in turns, over
+        rotating copies of x."""
         _, _, (x3, w3, s3) = k3_against_plain(rng, m, kd, n3,
                                               torch.float32, True)
         w_deq = unpack_int4(w3).float() * s3
@@ -1604,12 +1845,22 @@ def smoke(args, pool) -> int:
             "kernel": rotating(lambda x: int4_matmul(x, w3, s3), x3_in),
             "library": rotating(lambda x: torch.matmul(x, w_deq), x3_in),
             "plain": rotating(lambda x: int4_matmul_plain(x, w3, s3), x3_in)})
-        k3_times.append({
-            "shape": [m, kd, n3],
-            "variant": int4_variant(m, kd, n3, x3.dtype, x3.data_ptr()),
-            "bound_ms": max(b3, o3),
-            "bound_by": "bytes" if b3 >= o3 else "operations",
-            **timing_fields(t3, max(b3, o3))})
+        return {"shape": [m, kd, n3],
+                "variant": int4_variant(m, kd, n3, x3.dtype, x3.data_ptr()),
+                "bound_ms": max(b3, o3),
+                "bound_by": "bytes" if b3 >= o3 else "operations",
+                **timing_fields(t3, max(b3, o3))}
+
+    # K3 at the classification head's shape and the layer products, then
+    # Table 8's layer products and its head at the smallest and largest
+    # class counts (padded to even)
+    k3_times = [k3_record(*shape)
+                for shape in ((4096, 12, 20000),) + K3_PATH_SHAPES[:3]]
+    t8_heads = sorted(set(table8_classes.values()))
+    k3_times += [dict(k3_record(*shape), path="predictor tables, Table 8")
+                 for shape in K3_TABLE8_SHAPES + tuple(
+                     (512, 12, n + n % 2) for n in (t8_heads[0],
+                                                    t8_heads[-1]))]
     k3_head = k3_times[0]
     # K3 on its path: one bench's quantized simplified inference
     # (predict_trace, HLSH: six weight products a batch) with the products
@@ -1631,7 +1882,7 @@ def smoke(args, pool) -> int:
     agree = float(np.mean(infer_preds["k3"] == infer_preds["fake_quant"]))
     check(agree >= 0.99, f"{INFER_BENCH} predictions with K3 agree with the "
           f"fake-quant product's on {agree:.4f} of accesses")
-    print(f"phase 14 {card}: {INFER_BENCH} quantized simplified inference "
+    print(f"phase 15 {card}: {INFER_BENCH} quantized simplified inference "
           f"({len(traces[INFER_BENCH])} accesses): K3 "
           f"{', '.join(f'{x:.3f}' for x in infer_s['k3'])} s, fake-quant "
           f"product {', '.join(f'{x:.3f}' for x in infer_s['fake_quant'])} "
@@ -1661,12 +1912,7 @@ def smoke(args, pool) -> int:
          "launches": sum(by_path("hlsh_attention").values()),
          "launches_by_path": by_path("hlsh_attention"),
          "max_abs_err": k2_err["float32"], "max_abs_err_by_dtype": k2_err,
-         "shape": [b, n, d], "dtype": "float32", "variant": k2_geo,
-         "bound_ms": k2_bound,
-         "bound_by": "bytes" if k2_bound_bytes >= k2_bound_ops
-         else "operations",
-         **timing_fields(k2_t, k2_bound),
-         "variants": [k2_bf16]},
+         **k2_main, "variants": [k2_bf16, k2_table5]},
         {"name": "int4_matmul", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES,
          "launches": sum(by_path("int4_matmul").values()),
@@ -1680,10 +1926,8 @@ def smoke(args, pool) -> int:
          "launches": sum(by_path("flash_attention").values()),
          "launches_by_path": by_path("flash_attention"),
          "max_abs_err": max(k4_err.values()), "max_abs_err_by_dtype": k4_err,
-         "bf16_path_shape_err": k4_bf16_path, "shape": list(K4_PATH_SHAPE),
-         "variant": k4_variant, "bound_ms": k4_bound,
-         "bound_by": "bytes" if k4_bytes >= k4_ops else "operations",
-         **k4_fields},
+         "bf16_path_shape_err": k4_bf16_path, **k4_main,
+         "variants": k4_tables},
     ]
 
     def times(t):
@@ -1699,22 +1943,26 @@ def smoke(args, pool) -> int:
                 f"{t['bound_ms']:.4f} by {t['bound_by']} ({share} of it)")
 
     k1_dev_txt = "not measured" if k1_dev is None else f"{k1_dev:.3f}"
-    print(f"phase 14 {card}: K1 {k1_ms:.3f} ms per launch ({k1_dev_txt} ms "
+    print(f"phase 15 {card}: K1 {k1_ms:.3f} ms per launch ({k1_dev_txt} ms "
           f"device) on the main path's learned batch "
           f"({len(k1_batch.pages)} lanes padded, {n_acc} accesses; chain "
           f"bound {k1_chain:.2f} ms; plain version {plain_s * 1e3:.1f} ms on "
           "the host)", flush=True)
-    print(f"phase 14 {card}: K2 at ({b},{n},{d}) [{k2_geo}] float32 "
-          f"{times(kernels[1])}; bf16 {times(k2_bf16)} (library: "
-          "scaled_dot_product_attention)", flush=True)
-    print(f"phase 14 {card}: K4 at {K4_PATH_SHAPE} float32 [{k4_variant}] "
-          f"{times(kernels[3])} (library: scaled_dot_product_attention); "
-          f"launches by path {by_path('flash_attention')}", flush=True)
+    for t in (k2_main, k2_bf16, k2_table5):
+        print(f"phase 15 {card}: K2 at {tuple(t['shape'])} [{t['variant']}] "
+              f"{t['dtype']} {times(t)} (library: "
+              "scaled_dot_product_attention)", flush=True)
+    for t in [k4_main] + k4_tables:
+        print(f"phase 15 {card}: K4 at {tuple(t['shape'])} float32 "
+              f"[{t['variant']}] {times(t)} (library: "
+              "scaled_dot_product_attention)", flush=True)
     for t in k3_times:
-        print(f"phase 14 {card}: K3 at {tuple(t['shape'])} float32 "
+        print(f"phase 15 {card}: K3 at {tuple(t['shape'])} float32 "
               f"[{t['variant']}] {times(t)} (library: torch.matmul on the "
               "dequantized weight)", flush=True)
-    print(f"phase 14: K3 launches by path {by_path('int4_matmul')}; K2 "
+    print(f"phase 15: K4 launches by path {by_path('flash_attention')}",
+          flush=True)
+    print(f"phase 15: K3 launches by path {by_path('int4_matmul')}; K2 "
           f"{by_path('hlsh_attention')}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
@@ -1729,7 +1977,10 @@ def smoke(args, pool) -> int:
                        "main_path_s": main_s, "tables_s": tables_s,
                        "oversub_full_s": matrix_s, "serve_full_s": serve_s,
                        "mt_full_s": mt_s, "transformer_smoke_s": smoke_s,
-                       "family_s": family_s}, f, indent=1)
+                       "family_s": family_s, "predictor_tables": ptables,
+                       "predictor_table_stats": ptable_stats,
+                       "predictor_table_fits": fits,
+                       "predictor_tables_s": ptables_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """Attention for the predictor: full softmax attention, windowed (local)
-attention and the paper's HLSH (Hamming-based LSH) attention (Algorithm 1)
-in its mask formulation.
+attention, Reformer-style LSH attention and the paper's HLSH (Hamming-based
+LSH) attention (Algorithm 1) in its mask formulation.
 
 HLSH erases rows whose Hamming score is >= HTOP (near-orthogonal to
 everything: negligible dot products) and lets near-duplicate rows (score
@@ -9,8 +9,9 @@ everything: negligible dot products) and lets near-duplicate rows (score
 share is a gather on the output rows.
 
 The reference draws the hash projection and the half-sample from
-``jax.random`` inside :func:`hlsh_plan`.  Here both are explicit inputs; see
-:func:`lsh_draws` for where they come from.
+``jax.random`` inside :func:`hlsh_plan` and :func:`lsh_attention`.  Here
+they are explicit inputs; see :func:`lsh_draws` and :func:`lsh_projection`
+for where they come from.
 """
 from __future__ import annotations
 
@@ -76,12 +77,40 @@ def lsh_draws(d: int, n_hashes: int, n_buckets: int, n: int, lsh_seed: int,
     return r.to(device), sel.to(device)
 
 
+def lsh_projection(d: int, n_hashes: int, n_buckets: int, lsh_seed: int
+                   ) -> torch.Tensor:
+    """The hash projection (d, n_hashes, n_buckets // 2) float32 of
+    :func:`lsh_attention`.  The reference draws it, unsplit, as
+    ``jax.random.normal(PRNGKey(lsh_seed), ...)``; here it comes from a
+    ``torch.Generator`` seeded with ``lsh_seed``: the same distribution, not
+    the reference's numbers (``Predictor.set_lsh_projection`` takes JAX's)."""
+    g = torch.Generator().manual_seed(lsh_seed)
+    return torch.randn((d, n_hashes, n_buckets // 2), generator=g,
+                       dtype=torch.float32)
+
+
 def lsh_hash(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Angular LSH (Reformer): projections + argmax over [xR; -xR].
     Returns (B, N, n_hashes) int64 bucket ids."""
     proj = torch.einsum("bnd,dhr->bnhr", x, r)
     proj = torch.cat([proj, -proj], dim=-1)
     return torch.argmax(proj, dim=-1)
+
+
+def lsh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  r: torch.Tensor) -> torch.Tensor:
+    """Reformer-flavoured LSH attention (shared-QK hashing): attention is
+    restricted to pairs whose normalised queries collide in at least one
+    hash round of the projection ``r``; logits outside are -1e9, as in the
+    reference.  O(N^2) as written (the mask is materialised); plain PyTorch
+    everywhere, since the reference has no kernel for it."""
+    d = q.shape[-1]
+    qn = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
+    buckets = lsh_hash(qn, r)                               # (B,N,H)
+    same = (buckets[:, :, None, :] == buckets[:, None, :, :]).any(-1)
+    logits = torch.einsum("bnd,bmd->bnm", q, k) / math.sqrt(d)
+    logits = logits.masked_fill(~same, -1e9)
+    return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, dim=-1), v)
 
 
 class HLSHPlan(NamedTuple):
@@ -131,3 +160,9 @@ def hlsh_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bnm,bmd->bnd", torch.softmax(logits, dim=-1), v)
     # copy the representative's output into the erased near-duplicates
     return torch.gather(out, 1, plan.share_src[..., None].expand_as(out))
+
+
+def hlsh_erased_fraction(plan: HLSHPlan) -> torch.Tensor:
+    """Fraction of rows whose dot products were skipped: the work saving K2
+    turns into skipped keys."""
+    return 1.0 - plan.keep.to(torch.float32).mean()

@@ -9,8 +9,11 @@ import torch
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """Map the reference param pytree (``repro.core.model.init_params``
-    layout, leaves as numpy arrays) onto a ``Predictor`` state dict, so
-    ``Predictor.load_state_dict`` makes both compute the same function."""
+    layout of any arch, leaves as numpy arrays) onto a ``Predictor`` state
+    dict, so ``Predictor.load_state_dict`` makes both compute the same
+    function: ``emb.<feature>``, ``layers.<i>.<name>`` (``ln1``/``ln2``'s
+    ``g`` and ``b`` as ``ln1_g`` ...), and every other leaf (``head``,
+    ``head_b``, ``w1`` ... ``c1`` ... ``wx`` ...) under its own name."""
     state: Dict[str, torch.Tensor] = {}
 
     def put(name: str, x) -> None:
@@ -25,6 +28,7 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
                     put(f"layers.{i}.{name}_{sub}", y)
             else:
                 put(f"layers.{i}.{name}", x)
-    put("head", params["head"])
-    put("head_b", params["head_b"])
+    for name, x in params.items():
+        if name not in ("emb", "layers"):
+            put(name, x)
     return state

@@ -1,28 +1,39 @@
-"""The predictor model (paper §4, §6) as an ``nn.Module``.
+"""The predictor models (paper §4, §6, §7.2) as one ``nn.Module``.
 
-Ports the ``transformer`` arch of the reference ``repro.core.model`` with
-``full``, ``local``, ``hlsh`` and ``bypass`` attention: feature-embedding concat,
-sinusoidal positions, encoder layers, last-token classification head,
-optional 4-bit fake quantization of weights and activations.  The
-simplified §6 predictor is this arch with 3 features (12 dims), 1 layer,
-1 head, HLSH attention or the convergence bypass, and QAT.
+Ports the reference ``repro.core.model``: every arch (``transformer``, and
+the comparison predictors ``fc``, ``mlp``, ``cnn`` and ``lstm`` of Table 4
+and Fig 9) and every attention of the transformer arch (``full``,
+``local``, ``lsh``, ``hlsh``, ``bypass``).  The transformer is the
+feature-embedding concat, sinusoidal positions, encoder layers and a
+last-token classification head, with optional 4-bit fake quantization of
+weights and activations; the simplified §6 predictor is this arch with 3
+features (12 dims), 1 layer, 1 head, HLSH attention or the convergence
+bypass, and QAT.  The other archs read the same embedding concat (no
+positions): ``fc`` one product of the flattened window, ``mlp`` two ReLU
+layers, ``cnn`` two width-3 "SAME" convolutions and a max over the window,
+``lstm`` an LSTM over the window.  Under quantization every arch
+fake-quantizes its embedding tables; among the other archs' weights only
+``fc``'s head is quantized, as in the reference.
 
 Parameters carry the reference pytree's names (``emb.<feature>``,
-``layers.<i>.<wq|wk|...|ln1_g|ln1_b|...>``, ``head``, ``head_b``), so
-``repro_torch.core.convert.params_from_jax`` maps one onto the other.  Init
-draws from a ``torch.Generator``: the same distributions as the reference,
-not its numbers.
+``layers.<i>.<wq|wk|...|ln1_g|ln1_b|...>``, ``head``, ``head_b``; ``w1``,
+``b1``, ``w2``, ``b2`` of ``mlp``; ``c1``, ``c2`` of ``cnn``; ``wx``,
+``wh``, ``bh`` of ``lstm``), so ``repro_torch.core.convert.params_from_jax``
+maps one onto the other.  Init draws from a ``torch.Generator``: the same
+distributions as the reference, not its numbers.
 
 At inference (autograd off) the layers go through the kernel wrappers of
 ``repro_torch.kernels.ops``, which launch the kernels on CUDA tensors and
 run their plain versions on CPU tensors: HLSH attention on K2, full
 attention on K4 (the heads viewed as (B, H, S, Dh), no copy), and under
-quantization every weight product on K3 (weights packed on each call from
-the current parameters, with the codes and scale of ``fake_quant_tensor``).
-With autograd on, the layers run the differentiable plain PyTorch code:
+quantization every quantized weight product (the transformer's and
+``fc``'s head) on K3 (weights packed on each call from the current
+parameters, with the codes and scale of ``fake_quant_tensor``).  With
+autograd on, the layers run the differentiable plain PyTorch code:
 ``core.attention.{full_attention,hlsh_apply}`` and ``x @
-fake_quant_tensor(w)``.  Local attention is plain everywhere (the reference
-has no kernel for it); the embedding gathers are no products and stay
+fake_quant_tensor(w)``.  Local and LSH attention are plain everywhere, as
+are the other archs' products and convolutions (the reference has no kernel
+for any of them); the embedding gathers are no products and stay
 ``fake_quant_tensor(table)[x]``.
 """
 from __future__ import annotations
@@ -40,10 +51,9 @@ from repro_torch.core.quantize import (fake_quant, fake_quant_tensor,
 from repro_torch.core.vocab import FEATURE_BUCKETS
 from repro_torch.kernels import ops
 
-#: attention kinds of the transformer arch this port implements; the
-#: reference's ``lsh`` attention and its fc/mlp/cnn/lstm archs are later
-#: slices of the port
-PORTED_ATTENTION = ("full", "local", "hlsh", "bypass")
+#: the reference's archs and the attentions of its transformer arch
+ARCHS = ("transformer", "fc", "mlp", "cnn", "lstm")
+ATTENTIONS = ("full", "local", "lsh", "hlsh", "bypass")
 
 def _dense_init(g: torch.Generator, shape, scale=None) -> torch.Tensor:
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
@@ -82,42 +92,62 @@ class Predictor(nn.Module):
     def __init__(self, cfg: PredictorConfig, generator: torch.Generator,
                  device: torch.device | str = "cuda") -> None:
         super().__init__()
-        if cfg.arch != "transformer" or cfg.attention not in PORTED_ATTENTION:
-            raise ValueError(
-                f"arch={cfg.arch!r} attention={cfg.attention!r} is not in "
-                "this slice of the port (transformer with "
-                f"{'/'.join(PORTED_ATTENTION)} attention); the other archs "
-                "and attentions come in a later slice")
+        if cfg.arch not in ARCHS or (cfg.arch == "transformer"
+                                     and cfg.attention not in ATTENTIONS):
+            raise ValueError(f"unknown arch {cfg.arch!r} or attention "
+                             f"{cfg.attention!r}")
         self.cfg = cfg
         g = generator
-        d = cfg.d_model
-        ff = d * cfg.d_ff_mult
+        d, h, s = cfg.d_model, cfg.hidden, cfg.seq_len
         self.emb = nn.ParameterDict({
             f: nn.Parameter(torch.randn((FEATURE_BUCKETS[f], dim), generator=g)
                             * 0.02)
             for f, dim in cfg.emb_dims.items()})
         self.layers = nn.ModuleList()
-        for _ in range(cfg.n_layers):
-            self.layers.append(nn.ParameterDict({
-                "wq": nn.Parameter(_dense_init(g, (d, d))),
-                "wk": nn.Parameter(_dense_init(g, (d, d))),
-                "wv": nn.Parameter(_dense_init(g, (d, d))),
-                "wo": nn.Parameter(_dense_init(g, (d, d))),
-                "ln1_g": nn.Parameter(torch.ones(d)),
-                "ln1_b": nn.Parameter(torch.zeros(d)),
-                "w1": nn.Parameter(_dense_init(g, (d, ff))),
-                "b1": nn.Parameter(torch.zeros(ff)),
-                "w2": nn.Parameter(_dense_init(g, (ff, d))),
-                "b2": nn.Parameter(torch.zeros(d)),
-                "ln2_g": nn.Parameter(torch.ones(d)),
-                "ln2_b": nn.Parameter(torch.zeros(d)),
-            }))
-        self.head = nn.Parameter(_dense_init(g, (d, cfg.n_classes)))
+        dense = {}
+        if cfg.arch == "transformer":
+            ff = d * cfg.d_ff_mult
+            for _ in range(cfg.n_layers):
+                self.layers.append(nn.ParameterDict({
+                    "wq": nn.Parameter(_dense_init(g, (d, d))),
+                    "wk": nn.Parameter(_dense_init(g, (d, d))),
+                    "wv": nn.Parameter(_dense_init(g, (d, d))),
+                    "wo": nn.Parameter(_dense_init(g, (d, d))),
+                    "ln1_g": nn.Parameter(torch.ones(d)),
+                    "ln1_b": nn.Parameter(torch.zeros(d)),
+                    "w1": nn.Parameter(_dense_init(g, (d, ff))),
+                    "b1": nn.Parameter(torch.zeros(ff)),
+                    "w2": nn.Parameter(_dense_init(g, (ff, d))),
+                    "b2": nn.Parameter(torch.zeros(d)),
+                    "ln2_g": nn.Parameter(torch.ones(d)),
+                    "ln2_b": nn.Parameter(torch.zeros(d)),
+                }))
+            head_in = d
+        elif cfg.arch == "fc":
+            head_in = s * d
+        elif cfg.arch == "mlp":
+            dense = {"w1": _dense_init(g, (s * d, h)), "b1": torch.zeros(h),
+                     "w2": _dense_init(g, (h, h)), "b2": torch.zeros(h)}
+            head_in = h
+        elif cfg.arch == "cnn":
+            dense = {"c1": _dense_init(g, (3, d, h), scale=0.1),
+                     "c2": _dense_init(g, (3, h, h), scale=0.1)}
+            head_in = h
+        else:                                       # lstm
+            dense = {"wx": _dense_init(g, (d, 4 * h)),
+                     "wh": _dense_init(g, (h, 4 * h)),
+                     "bh": torch.zeros(4 * h)}
+            head_in = h
+        for name, t in dense.items():
+            self.register_parameter(name, nn.Parameter(t))
+        self.head = nn.Parameter(_dense_init(g, (head_in, cfg.n_classes)))
         self.head_b = nn.Parameter(torch.zeros(cfg.n_classes))
         # per window length S, as the reference computes them on every call:
-        # the positional table and the HLSH draws (r, sel)
+        # the positional table and the HLSH draws (r, sel); and LSH's
+        # projection, which does not depend on S
         self._pos: dict[int, torch.Tensor] = {}
         self._lsh: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._lsh_r: torch.Tensor | None = None
         self.to(device)
 
     def set_lsh_draws(self, s: int, r: torch.Tensor, sel: torch.Tensor
@@ -125,6 +155,24 @@ class Predictor(nn.Module):
         """Use ``r`` and ``sel`` as the HLSH draws of windows of ``s``
         tokens (for example the reference's own ``jax.random`` draws)."""
         self._lsh[s] = (r, sel)
+
+    def set_lsh_projection(self, r: torch.Tensor) -> None:
+        """Use ``r`` (d_head, n_hashes, n_buckets // 2) as the projection
+        of ``lsh`` attention (for example the reference's own
+        ``jax.random`` draw); else ``attention.lsh_projection``'s."""
+        self._lsh_r = r
+
+    def _lsh_projection(self, device: torch.device) -> torch.Tensor:
+        cfg = self.cfg
+        r = self._lsh_r
+        if r is None:
+            r = attn_lib.lsh_projection(cfg.d_model // cfg.n_heads,
+                                        cfg.n_hashes, cfg.n_buckets,
+                                        cfg.lsh_seed)
+        if r.device != device:
+            r = r.to(device)
+        self._lsh_r = r
+        return r
 
     def _positions(self, s: int, d: int, device: torch.device
                    ) -> torch.Tensor:
@@ -168,6 +216,9 @@ class Predictor(nn.Module):
         cfg = self.cfg
         if cfg.attention == "local":
             return attn_lib.local_attention(q, k, v, cfg.local_window)
+        if cfg.attention == "lsh":
+            return attn_lib.lsh_attention(q, k, v,
+                                          self._lsh_projection(q.device))
         if cfg.attention == "full":
             if torch.is_grad_enabled():
                 return attn_lib.full_attention(q, k, v)
@@ -203,12 +254,52 @@ class Predictor(nn.Module):
         return _layernorm(self._qa(h + ff), lp["ln2_g"], lp["ln2_b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         x = x.long()
         h = torch.cat([self._qw(self.emb[f])[x[:, :, j]]
-                       for j, f in enumerate(self.cfg.features)], dim=-1)
-        h = h + self._positions(h.shape[1], h.shape[2], h.device)
-        h = self._qa(h)
-        for lp in self.layers:
-            h = self._encoder_layer(lp, h)
-        last = h[:, -1]
-        return self._mm(last, self.head) + self.head_b
+                       for j, f in enumerate(cfg.features)], dim=-1)
+        b, s, d = h.shape
+        if cfg.arch == "transformer":
+            h = self._qa(h + self._positions(s, d, h.device))
+            for lp in self.layers:
+                h = self._encoder_layer(lp, h)
+            return self._mm(h[:, -1], self.head) + self.head_b
+        if cfg.arch == "fc":
+            return self._mm(h.reshape(b, s * d), self.head) + self.head_b
+        if cfg.arch == "mlp":
+            z = torch.relu(h.reshape(b, s * d) @ self.w1 + self.b1)
+            z = torch.relu(z @ self.w2 + self.b2)
+        elif cfg.arch == "cnn":
+            # "SAME" width-3 cross-correlations in the reference's NWC/WIO
+            # layout: conv1d on (B, C, W) with the (W, I, O) kernel as
+            # (O, I, W)
+            z = h.transpose(1, 2)
+            for c in (self.c1, self.c2):
+                z = torch.relu(torch.nn.functional.conv1d(
+                    z, c.permute(2, 1, 0), padding=1))
+            z = z.amax(dim=2)
+        else:                                       # lstm, gates i, f, g, o
+            xw = h @ self.wx                        # (B, S, 4H), all steps
+            hp = c = h.new_zeros((b, self.wh.shape[0]))
+            for t in range(s):
+                i, f, g, o = (xw[:, t] + hp @ self.wh + self.bh).chunk(4, -1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                hp = torch.sigmoid(o) * torch.tanh(c)
+            z = hp
+        return z @ self.head + self.head_b
+
+
+def count_activation_elems(cfg: PredictorConfig) -> int:
+    """Per-example activation element count for the footprint report
+    (Tables 6-7): embeddings + every encoder-layer intermediate, as the
+    reference counts them."""
+    s, d = cfg.seq_len, cfg.d_model
+    total = s * d  # embeddings (+ positions in place)
+    if cfg.arch == "transformer":
+        per_layer = s * d * 4          # q,k,v,o
+        if cfg.attention != "bypass":
+            per_layer += s * s * cfg.n_heads   # attention matrix
+        per_layer += s * d * cfg.d_ff_mult + s * d * 2  # ffn + norms
+        total += cfg.n_layers * per_layer
+    total += cfg.n_classes
+    return total

@@ -1,7 +1,8 @@
 """Quantization (paper §6): clamp weights and activations to [-8, +8] on a
-4-bit integer grid, trained with straight-through estimation, and the
+4-bit integer grid, trained with straight-through estimation; the
 device-side int4 packer of the quantized inference path on K3
-(:func:`pack_int4_like_fake_quant`).
+(:func:`pack_int4_like_fake_quant`); and the memory-footprint estimator
+behind Tables 6-7 (:func:`footprint_report`).
 """
 from __future__ import annotations
 
@@ -43,3 +44,21 @@ def pack_int4_like_fake_quant(w: torch.Tensor
     u = (codes - QMIN).to(torch.uint8)                    # 0..15
     return ((u[:, 0::2] << 4) | u[:, 1::2]).contiguous(), s
 
+
+
+def param_bytes(model: torch.nn.Module, bits: int = 32) -> int:
+    """Bytes of ``model``'s parameters at ``bits`` bits each: every leaf of
+    the reference's param pytree (unused ones too, such as ``wk`` under
+    shared-QK HLSH)."""
+    n = sum(p.numel() for p in model.parameters())
+    return n * bits // 8
+
+
+def footprint_report(model: torch.nn.Module, activation_elems: int,
+                     batch_size: int, bits: int = 32) -> dict:
+    """Tables 6-7 style footprint: parameter bytes + forward/backward
+    activation bytes (activations are counted twice: stored for backward)."""
+    p = param_bytes(model, bits)
+    act = activation_elems * batch_size * 2 * bits // 8
+    return {"params_bytes": p, "activations_bytes": act,
+            "total_bytes": p + act}

@@ -4,7 +4,8 @@ runtime (paper §7.1), ported from the reference ``repro.core.service``.
 * ``fit`` trains the predictor on a trace (optionally from given params),
 * ``predict_trace`` produces the per-access top-1 predicted page array the
   ``LearnedPrefetcher`` consumes: for every access i, the page the model
-  expects ``distance`` requests later within i's cluster stream.
+  expects ``distance`` requests later within i's cluster stream;
+* ``pretrain_corpus`` pretrains one model on a corpus of several traces.
 
 Training and inference run on ``device`` (default ``"cuda"``); on a CUDA
 device the HLSH layer's inference goes through the K2 kernel.
@@ -12,7 +13,7 @@ device the HLSH layer's inference goes through the K2 kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -140,3 +141,29 @@ class PredictorService:
                     _flush()
         _flush()
         return out
+
+
+def pretrain_corpus(traces: List[Trace], cfg: families.PredictorConfig,
+                    vocab: DeltaVocab, cluster_key: str = "sm_warp",
+                    distance: int = 30, steps: int = 300, seed: int = 0,
+                    device: str = "cuda") -> Dict[str, torch.Tensor]:
+    """Paper §7.1: build a corpus from several benchmarks (the leading 50%
+    of each) and pretrain a single model on it; returns the trained
+    ``Predictor``'s state dict.  The shared vocab must be built by the
+    caller over the union of the traces."""
+    xs, ys = [], []
+    for tr in traces:
+        half, _ = tr.split(0.5)
+        ct = cluster_trace(half, cluster_key)
+        data = build_dataset(ct, vocab, features=list(cfg.features),
+                             distance=distance, max_train=8000, seed=seed)
+        xs.append(data.x_train)
+        ys.append(data.y_train)
+    x = np.concatenate(xs)
+    y = np.concatenate(ys)
+    # the last trace's dataset container, holding the corpus
+    ds = dataclasses.replace(
+        data, x_train=x, y_train=y, x_valid=x[:256], y_valid=y[:256],
+        x_test=x[:256], y_test=y[:256])
+    res = train_predictor(cfg, ds, steps=steps, seed=seed, device=device)
+    return res.model.state_dict()

@@ -3,7 +3,9 @@ lane family and eviction policy exactly (the hard-quota cells included) and
 matches its plain version, its step-clock and quota lanes equal the legacy
 engine, the paper's Table 10/11 tree rows equal the legacy engine's, K2-K4
 match their plain versions (K3 and K4 also at the edges of each of their
-variants and tilings), and the predictor's inference goes through K2-K4.
+variants and tilings, K2-K4 at the predictor tables' shapes), the
+predictor's inference goes through K2-K4, and the other archs' inference
+agrees with the CPU.
 Every test here needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode) and skips without one.  The module imports neither jax nor the
 reference package, so it runs where only PyTorch is installed:
@@ -290,9 +292,11 @@ def test_k2_matches_its_plain_version(device, b, n, d):
 
 #: K2's warp-per-row tiling at its edges: N of 1, 2, 31 and 32 (the path's
 #: 30 between), odd D (7, 13: no float4 rows), D = 64, and rows whose spans
-#: are not 16-byte aligned (N * D = 403 and 210 elements)
+#: are not 16-byte aligned (N * D = 403 and 210 elements); and Table 5's
+#: HLSH rows (512 windows x 4 heads of 200 / 4 dims: 2 rows a block)
 K2_WARP_SHAPES = [(64, 1, 12), (64, 2, 12), (64, 31, 12), (64, 32, 12),
-                  (33, 30, 7), (33, 31, 13), (9, 32, 64), (9, 30, 64)]
+                  (33, 30, 7), (33, 31, 13), (9, 32, 64), (9, 30, 64),
+                  (2048, 30, 50)]
 
 
 @pytest.mark.parametrize("b,n,d", K2_WARP_SHAPES)
@@ -459,6 +463,26 @@ def _k3_check(x, packed, scale, variant):
     assert err < (1e-4 if x.dtype == torch.float32 else 2e-2)
 
 
+#: Table 8's quantized revised predictor at the evaluation batch of 512
+#: windows: its layer products (15,360 token rows of 12 and 48) and its
+#: head at each bench's class count (padded to even), with their bodies
+K3_TABLE8_SHAPES = [(15360, 12, 12, "narrow16"), (15360, 12, 48, "narrow48x2"),
+                    (15360, 48, 12, "narrow16"), (512, 12, 4, "narrow16")] + [
+    (512, 12, n, "general") for n in (6, 26, 70, 142, 146, 158)]
+
+
+@pytest.mark.parametrize("m,k,n,variant", K3_TABLE8_SHAPES)
+def test_k3_at_table8_shapes_matches_its_plain_version(device, m, k, n,
+                                                       variant):
+    """On weights packed as the path packs them (``fake_quant_tensor``'s
+    codes and scale), float32 as the path runs."""
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g).to(device)
+    packed, scale = pack_int4_like_fake_quant(
+        torch.randn((k, n), generator=g).to(device) * 0.3)
+    _k3_check(x, packed, scale, variant)
+
+
 @pytest.mark.parametrize("k", K3_EDGE_K)
 @pytest.mark.parametrize("n", K3_EDGE_N)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -558,6 +582,23 @@ def test_k4_bf16_edge_shapes_match_the_float32_plain_version(device, s, d,
               float32_plain=True)
 
 
+#: the predictor tables' K4 shapes at the evaluation batch of 512: Fig 5's
+#: single-feature Transformers (4 heads of 2, 3, 4, 6 and 8 dims: odd and
+#: sub-float4 rows) and the revised rows of Table 8 and Fig 9 (1 head of 12)
+K4_TABLE_SHAPES = [(512, 4, 4, 30, 30, d) for d in (2, 3, 4, 6, 8)] + [
+    (512, 1, 1, 30, 30, 12)]
+
+
+@pytest.mark.parametrize("shape", K4_TABLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_at_the_tables_shapes_matches_its_plain_version(device, shape,
+                                                           dtype):
+    """In the warp tiling; bf16 against the float32 plain version on the
+    same inputs."""
+    _k4_check(device, shape, dtype, False, sum(shape) + shape[-1],
+              float32_plain=dtype == torch.bfloat16)
+
+
 @pytest.mark.parametrize("shape", [
     (2, 4, 2, 33, 33, 50), (1, 8, 1, 30, 30, 50),     # GQA
     (2, 4, 2, 33, 29, 50), (1, 2, 1, 129, 31, 64),   # Sq > Sk
@@ -644,4 +685,45 @@ def test_predictor_inference_runs_k3_k4_and_matches_the_cpu(
                                           else 6)
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
     if not quantize:
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+#: the other archs and LSH attention at the widths of Table 4 and Fig 9
+#: (13 features, d_model 200, hidden 128), fc also quantized
+ARCH_CONFIGS = {
+    "fc": dict(arch="fc"), "fc-quantized": dict(arch="fc", quantize=True),
+    "mlp": dict(arch="mlp"), "cnn": dict(arch="cnn"),
+    "lstm": dict(arch="lstm"), "transformer-lsh": dict(attention="lsh")}
+
+
+@pytest.mark.parametrize("name", sorted(ARCH_CONFIGS))
+def test_other_archs_inference_matches_the_cpu(device, monkeypatch, name):
+    """Each arch's inference on the card agrees with the same model on the
+    CPU (float32 convolutions in full precision, TF32 off, as on the CPU);
+    the quantized fc head launches K3 once, no other arch a kernel."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = families.PredictorConfig(n_classes=40, **ARCH_CONFIGS[name])
+    model = Predictor(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(np.stack(
+        [rng.integers(0, FEATURE_BUCKETS[f], (512, cfg.seq_len))
+         for f in cfg.features], -1))
+    counted = (int4_matmul, hlsh_attention, flash_attention)
+    with torch.no_grad():
+        want = model(x)
+        before = [fn.launches for fn in counted]
+        got = model.to(device)(x.to(device)).cpu()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counted, before)] == (
+        [1, 0, 0] if cfg.quantize else [0, 0, 0])
+    if cfg.quantize:
+        assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.99
+    elif cfg.attention == "lsh":
+        # a token whose hash sits at a near tie can land in another bucket
+        # under last-ulp differences of q (the hash is an argmax), which
+        # changes its row's mask: the rows where no bucket flips agree
+        rows = (got - want).abs().amax(-1) <= 1e-4
+        assert rows.float().mean() >= 0.99
+    else:
         assert (got - want).abs().max().item() <= 1e-4

@@ -144,6 +144,10 @@ INT4_VARIANT_CASES = [
     (122880, 48, 12, "float32", "narrow16"),
     (4096, 12, 20000, "float32", "wide16"),
     (4096, 12, 20000, "bfloat16", "wide16"),
+    # Table 8's revised predictor at the evaluation batch of 512 windows
+    (15360, 12, 12, "float32", "narrow16"),
+    (15360, 12, 48, "float32", "narrow48x2"),
+    (15360, 48, 12, "float32", "narrow16"),
     (128, 128, 256, "float32", "general"),
     (128, 256, 256, "bfloat16", "general"),
     (256, 128, 512, "float32", "general"),
@@ -178,6 +182,30 @@ def test_int4_variant_by_shape(m, k, n, dtype, variant):
     assert int4_variant(m, k, n, DTYPES[dtype][1]) == variant
 
 
+#: the body of Table 8's quantized head, (512, 12) x (12, n_classes), by
+#: bench: the class count of its distance-1 vocabulary at SM clustering,
+#: padded to even; only a multiple of 4 gives whole 16-byte rows of out
+TABLE8_HEAD_VARIANTS = {
+    "AddVectors": (4, "narrow16"), "ATAX": (5, "general"),
+    "Backprop": (142, "general"), "BICG": (5, "general"),
+    "Hotspot": (25, "general"), "MVT": (5, "general"),
+    "NW": (145, "general"), "Pathfinder": (158, "general"),
+    "Srad-v2": (70, "general")}
+
+
+def test_int4_variant_at_table8_heads():
+    from repro_torch.core import predictor_tables as pt
+    from repro_torch.core.features import cluster_trace
+    from repro_torch.core.vocab import DeltaVocab
+    assert sorted(TABLE8_HEAD_VARIANTS) == sorted(pt.PREDICTOR_BENCHMARKS)
+    for bench, (n_classes, variant) in TABLE8_HEAD_VARIANTS.items():
+        vocab = DeltaVocab.build(cluster_trace(pt.get_trace(bench), "sm"),
+                                 distance=1)
+        assert vocab.n_classes == n_classes, bench
+        n = n_classes + n_classes % 2
+        assert int4_variant(512, 12, n, torch.float32) == variant, bench
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int4_variant_cases_reach_every_body(dtype):
     """The shapes above reach every compiled body of K3 in each type (the
@@ -201,6 +229,11 @@ def test_int4_variant_by_pointer(x_ptr, out_ptr, narrow, wide):
 
 @pytest.mark.parametrize("bh,sq,sk,d,want", [
     (16384, 30, 30, 50, ("warp", 2)),          # the Transformer family's
+    # the predictor tables' evaluation batches of 512: Fig 5's single
+    # features (4 heads of 8 to 32 dims) and the revised rows (1 head of 12)
+    (2048, 30, 30, 2, ("warp", 2)), (2048, 30, 30, 3, ("warp", 2)),
+    (2048, 30, 30, 4, ("warp", 2)), (2048, 30, 30, 6, ("warp", 2)),
+    (2048, 30, 30, 8, ("warp", 2)), (512, 30, 30, 12, ("warp", 2)),
     (2, 128, 128, 64, ("general", 1)),         # the reference's shapes
     (8, 256, 256, 64, ("general", 1)),
     (8, 128, 384, 128, ("general", 1)),
@@ -229,6 +262,7 @@ def test_flash_geometry_fits_the_kernel(s, d):
 @pytest.mark.parametrize("b,n,d,dtype,want", [
     (4096, 30, 12, torch.float32, ("warp", 4)),     # the predictor's path
     (4096, 30, 12, torch.bfloat16, ("warp", 4)),
+    (2048, 30, 50, torch.float32, ("warp", 2)),     # Table 5's HLSH rows
     (1, 128, 32, torch.float32, ("general", 1)),    # the reference's shapes
     (2, 256, 64, torch.float32, ("general", 1)),
     (1, 512, 128, torch.bfloat16, ("general", 1)),
