@@ -4,8 +4,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
 learned-prefetch sweep, the paper's tree-vs-learned tables, the
 oversubscription matrix, the serving matrix, the multi-tenant matrix, the
-predictor-family smoke, a full-width Transformer-family sweep and the
-paper's predictor tables on the card:
+predictor-family smoke, a full-width Transformer-family sweep, the
+paper's predictor tables and the backend chain on the card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -26,7 +26,9 @@ paper's predictor tables on the card:
    on K3), every row replayed by K1; tree and learned rows equal the legacy
    engine on the same inputs;
 6. the paper's Table 10 and Table 11 (tree vs learned, unlimited memory);
-   every tree row equals the legacy engine's;
+   every tree row equals the legacy engine's; Fig 12 (normalised PCIe
+   traffic) and the §7.4 headline (IPC gain, hit rates, traffic) from the
+   same 22 rows, beside the paper's figures (reported, not checked);
 7. the ``oversub-full`` scenario (660 cells) through the port's sweep,
    sharing the main path's prediction cache; the 2DCONV cells are held
    against the legacy engine;
@@ -77,16 +79,27 @@ paper's predictor tables on the card:
     shapes and the predictor tables', each per call through its wrapper and
     as device time per launch (a CUDA graph of 20 launches; the profiler
     where a capture fails), in turns with its PyTorch call and its plain
-    version, then the ``kernels`` line and the result line.
+    version;
+16. the backend chain: one cell for each route on which K1 declines (Fig
+    11's BICG tree and learned cells with their per-transfer timelines, an
+    oracle lookahead of 1024, a window per access of a 78,643-access trace,
+    a tree trace past 2^21 accesses, a trace spanning past 2^20 pages, and
+    an adaptive cell whose probes span it), through ``run_sweep`` or
+    ``dispatch`` with ``backend="cuda"``: each row says ``numpy`` and why,
+    K1 never launches, and each equals the legacy engine (timelines element
+    by element); Fig 11's GB/s series; accesses per second of the legacy
+    loop, the NumPy engine and a one-lane K1 batch per family; then the
+    ``kernels`` line and the result line.
 
-Each of the eight driven paths (5, 6, 7, 10, 11, 12, 13, 14) zeroes the
-launch counters just before it and reads them just after.  The legacy
-engine's replays and the plain versions run in a pool of worker processes
-on the host.
+Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
+the NumPy engine or the legacy loop there fails the run.  Each of the nine
+driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16) zeroes the launch counters
+just before it and reads them just after.  The legacy engine's replays
+and the plain versions run in a pool of worker processes on the host.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` (``--out`` also writes the rows
-and kernel records as JSON).  Exits non-zero without a result line when no
-CUDA device is present or any check fails.
+and kernel records as JSON, and Fig 11's CSV).  Exits non-zero without a
+result line when no CUDA device is present or any check fails.
 """
 from __future__ import annotations
 
@@ -124,6 +137,16 @@ QUOTA_CHECK_SPLITS = ((0.5, 0.5), (0.4, 0.4))
 #: the legacy engine (phases 10 and 11)
 SERVE_CHECK_BENCH = "ServeBursty"
 MT_CHECK_BENCH = "MVT+StreamTriad"
+#: phase 16, the backend chain: the bench of the oracle and throughput
+#: cells; the bench of the span and adaptive cells, its arrays from FAR_ARRAY
+#: on allocated FAR_SHIFT pages higher (its first 20,000 accesses, the
+#: adaptive probe, touch all three arrays); the trace given a window per
+#: access (scale 2.0: past 65,536 accesses); and the tree cell past 2^21
+#: accesses (NW at scale 5.5: 2,109,388 accesses, a span of 59,392 pages)
+CHAIN_BENCH = "BICG"
+FAR_BENCH, FAR_ARRAY, FAR_SHIFT = "Pathfinder", "res_a", 1 << 20
+WINDOWS_TRACE = ("ATAX", 2.0, 0, 0.6)
+LONG_TREE_BENCH, LONG_TREE_SCALE = "NW", 5.5
 #: worker processes of the legacy engine and the plain versions
 HOST_WORKERS = 7
 K1_SOURCE = "src/repro_torch/csrc/lane_replay.cu"
@@ -238,8 +261,23 @@ def same_stats(got, want, what: str) -> None:
 def legacy_replay(req):
     """The legacy engine on one request (a host worker's job)."""
     from repro_torch.uvm.simulator import UVMSimulator
-    return UVMSimulator(req.config).run(req.trace, req.prefetcher,
-                                        step_bounds=req.step_bounds)
+    return UVMSimulator(req.config, req.record_timeline).run(
+        req.trace, req.prefetcher, step_bounds=req.step_bounds)
+
+
+def relocated(trace, first_array: str, shift: int):
+    """``trace`` with the arrays from ``first_array`` on (in base order)
+    allocated ``shift`` pages higher: the same accesses, the span ``shift``
+    pages wider (a root-aligned shift keeps every prefetcher's blocks)."""
+    import numpy as np
+    cut = trace.array_bases[first_array]
+    acc = trace.accesses.copy()
+    acc["page"] = np.where(acc["page"] >= cut, acc["page"] + shift,
+                           acc["page"])
+    bases = {a: b + (shift if b >= cut else 0)
+             for a, b in trace.array_bases.items()}
+    return dataclasses.replace(trace, name=f"{trace.name}-far",
+                               accesses=acc, array_bases=bases)
 
 
 def plain_replay(kwargs):
@@ -254,6 +292,20 @@ def plain_replay(kwargs):
 def init_worker() -> None:
     import torch
     torch.set_num_threads(1)
+
+
+def per_backend(rows) -> dict:
+    """Rows per backend, as a dict for the path's print."""
+    import collections
+    return dict(collections.Counter(r["backend"] for r in rows))
+
+
+def all_cuda(rows, what: str) -> None:
+    """Every row of a driven path ran on K1: a row on the NumPy engine or
+    the legacy loop is a failure there."""
+    check(all(r["backend"] == "cuda" for r in rows),
+          f"{what} did not run on the cuda backend: rows per backend "
+          f"{per_backend(rows)}")
 
 
 def same_row(row, want, what: str) -> None:
@@ -908,8 +960,9 @@ def smoke(args, pool) -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = path_launches["main"] = read_counts()
-    print(f"phase 5: main path, {len(rows)} rows in {main_s:.1f} s; "
-          f"launches {launches} (K1 by family/policy "
+    print(f"phase 5: main path, {len(rows)} rows in {main_s:.1f} s, rows "
+          f"per backend {per_backend(rows)}; launches {launches} (K1 by "
+          "family/policy "
           f"{dict(lane_replay.launches_by)})", flush=True)
     print("bench,prefetcher,frac,hit_rate,faults,pcie_bytes,accuracy,"
           "coverage,unity,backend,train_s,predict_s,replay_s")
@@ -919,8 +972,7 @@ def smoke(args, pool) -> int:
               f"{r['accuracy']:.4f},{r['coverage']:.4f},{r['unity']:.4f},"
               f"{r['backend']},{r['train_seconds']:.2f},"
               f"{r['predict_seconds']:.2f},{r['seconds']:.4f}")
-    check(all(r["backend"] == "cuda" for r in rows),
-          "a main-path row did not run on the cuda backend")
+    all_cuda(rows, "a main-path row")
     check(launches["lane_replay"] > 0, "K1 never launched on the main path")
     check(launches["hlsh_attention"] > 0,
           "K2 never launched on the main path")
@@ -948,16 +1000,20 @@ def smoke(args, pool) -> int:
     print(f"phase 5: {len(learned_reqs)} learned and {2 * len(legacy_tree)} "
           "tree rows equal the legacy engine on the same inputs", flush=True)
 
-    # ---- phase 6: the paper's Table 10 and Table 11 -----------------------
+    # ---- phase 6: the paper's Table 10 and Table 11, Fig 12, §7.4 --------
     reset_counts()
     t0 = time.perf_counter()
-    t10, t11 = paper_tables.run(BENCHES, device="cuda")
+    prows = paper_tables.sweep_rows(BENCHES, device="cuda")
     tables_s = time.perf_counter() - t0
     path_launches["tables"] = read_counts()
     tables_launches = lane_replay.launches
     check(tables_launches > 0, "K1 never launched for the paper tables")
+    all_cuda(prows, "a paper-table row")
+    t10, t11 = paper_tables.table10_rows(prows), paper_tables.table11_rows(
+        prows)
     print(f"phase 6: Table 10 (page hit rate, U=UVMSmart tree, R=learned), "
-          f"K1 launches {tables_launches}, {tables_s:.1f} s")
+          f"K1 launches {tables_launches}, {tables_s:.1f} s; rows per "
+          f"backend {per_backend(prows)}")
     print("bench,hit_U,hit_R,simulated_inst")
     for r in t10:
         print(f"{r['bench']},{r['hit_U']:.4f},{r['hit_R']:.4f},"
@@ -985,6 +1041,23 @@ def smoke(args, pool) -> int:
               "main path's row (checked against the legacy engine)")
     print("phase 6: every tree row equals the legacy engine's; every "
           "learned row equals the main path's", flush=True)
+    # Fig 12 and the §7.4 headline from the same 22 rows (no replay), with
+    # the paper's figures beside them: reported, not checked
+    fig12 = paper_tables.fig12_rows(prows)
+    ipc_rows, headline = paper_tables.headline(prows)
+    print("phase 6: Fig 12 (PCIe traffic, MB; normalized = R / U)")
+    print("bench,pcie_U_mb,pcie_R_mb,normalized,ipc_U,ipc_R,ipc_gain")
+    for f12, ipc in zip(fig12, ipc_rows):
+        print(f"{f12['bench']},{f12['pcie_U_mb']:.3f},{f12['pcie_R_mb']:.3f},"
+              f"{f12['normalized']:.4f},{ipc['ipc_U']:.4f},"
+              f"{ipc['ipc_R']:.4f},{ipc['ipc_gain']:.4f}")
+    print(f"phase 6 (reported): §7.4 headline, IPC "
+          f"{100 * (headline['ipc_gain_geomean'] - 1):+.2f}% over UVMSmart "
+          f"(paper +10.89%), hit rate {100 * headline['hit_R_mean']:.2f}% "
+          f"against {100 * headline['hit_U_mean']:.2f}% (paper 89.02% "
+          f"against 76.10%), PCIe traffic "
+          f"{100 * (headline['traffic_ratio_geomean'] - 1):+.2f}% (paper "
+          "-11.05%)", flush=True)
 
     # ---- phase 7: the oversub-full matrix ---------------------------------
     matrix = expand_scenario("oversub-full")
@@ -998,8 +1071,7 @@ def smoke(args, pool) -> int:
     matrix_by = dict(lane_replay.launches_by)
     replay_s = sum(r["seconds"] for r in mrows)
     check(len(mrows) == 660, f"oversub-full gave {len(mrows)} rows")
-    check(all(r["backend"] == "cuda" for r in mrows),
-          "an oversub-full row did not run on the cuda backend")
+    all_cuda(mrows, "an oversub-full row")
     check(matrix_launches > 0, "K1 never launched on oversub-full")
     # the matrix's requests, prepared once: the lane batches as run_sweep
     # packed them, the 2DCONV legacy check and the phase-8 timings
@@ -1011,9 +1083,10 @@ def smoke(args, pool) -> int:
         lanes_per.setdefault(kind_of(mreqs[b[0]]), []).append(len(b))
     check({k: len(v) for k, v in lanes_per.items()} == matrix_by,
           f"lane batches per kind {lanes_per} != K1 launches {matrix_by}")
-    print(f"phase 7 {card}: oversub-full, {len(mrows)} rows, all on cuda, "
-          f"in {matrix_s:.1f} s (replay {replay_s:.1f} s, prepare "
-          f"{matrix_s - replay_s:.1f} s); K1 launches {matrix_launches}",
+    print(f"phase 7 {card}: oversub-full, {len(mrows)} rows (per backend "
+          f"{per_backend(mrows)}), in {matrix_s:.1f} s (replay "
+          f"{replay_s:.1f} s, prepare {matrix_s - replay_s:.1f} s); K1 "
+          f"launches {matrix_launches}",
           flush=True)
     for key in sorted(lanes_per):
         print(f"  {key[0]}/{key[1]}: {matrix_by.get(key, 0)} launches, "
@@ -1180,8 +1253,9 @@ def smoke(args, pool) -> int:
                   f"{f} {r[f]} != legacy {v}")
     serve_train = sum(r["train_seconds"] for r in srows)
     serve_replay = sum(r["seconds"] for r in srows)
-    print(f"phase 10 {card}: serve-full, {len(srows)} rows, all on cuda "
-          f"with kernel step clocks and ordered percentiles, in "
+    print(f"phase 10 {card}: serve-full, {len(srows)} rows (per backend "
+          f"{per_backend(srows)}) with kernel step clocks and ordered "
+          f"percentiles, in "
           f"{serve_s:.1f} s (training {serve_train:.1f} s, replay "
           f"{serve_replay:.1f} s); K1 launches {serve_launches}; the "
           f"{len(chk)} {SERVE_CHECK_BENCH} rows equal the legacy engine",
@@ -1263,10 +1337,11 @@ def smoke(args, pool) -> int:
                   f"{sd}")
     mt_train = sum(r["train_seconds"] for r in trows)
     mt_replay = sum(r["seconds"] for r in trows)
-    print(f"phase 11 {card}: mt-full, {len(trows)} rows, all on cuda with "
-          f"per-tenant hit rates and slowdowns, in {mt_s:.1f} s (training "
-          f"{mt_train:.1f} s, replay {mt_replay:.1f} s); K1 launches "
-          f"{mt_launches}, {mt_lanes} lanes ({len(solos)} solo replays); "
+    print(f"phase 11 {card}: mt-full, {len(trows)} rows (per backend "
+          f"{per_backend(trows)}) with per-tenant hit rates and slowdowns, "
+          f"in {mt_s:.1f} s (training {mt_train:.1f} s, replay "
+          f"{mt_replay:.1f} s); K1 launches {mt_launches}, {mt_lanes} "
+          f"lanes ({len(solos)} solo replays); "
           f"the {len(chk)} {MT_CHECK_BENCH} rows and their "
           f"{len(solo_want)} solo replays equal the legacy engine",
           flush=True)
@@ -1301,8 +1376,7 @@ def smoke(args, pool) -> int:
         del os.environ["REPRO_ADAPTIVE_TABLE"]
     # the assertions of scripts/ci_check.sh on the same scenario
     check(len(xrows) == 4, f"transformer-smoke gave {len(xrows)} rows")
-    check(all(r["backend"] == "cuda" for r in xrows),
-          "a transformer-smoke row did not run on the cuda backend")
+    all_cuda(xrows, "a transformer-smoke row")
     fams = {r["model_family"] for r in xrows}
     check(fams == {"simplified", FAMILY}, f"transformer-smoke families {fams}")
     check(not [r for r in xrows if r["eviction"] == "adaptive"],
@@ -1321,8 +1395,9 @@ def smoke(args, pool) -> int:
     for r, want in zip(xrows, pool.map(legacy_replay, xreqs)):
         same_row(r, want, f"transformer-smoke {r['bench']}/"
                  f"{r['model_family']}")
-    print(f"phase 12 {card}: transformer-smoke, {len(xrows)} rows on cuda in "
-          f"{smoke_s:.1f} s, families {sorted(fams)}, evictions "
+    print(f"phase 12 {card}: transformer-smoke, {len(xrows)} rows (per "
+          f"backend {per_backend(xrows)}) in {smoke_s:.1f} s, families "
+          f"{sorted(fams)}, evictions "
           f"{ {b: sorted(p) for b, p in by_bench.items()} } as "
           f"ADAPTIVE_selector.json picks; launches {smoke_counts}; every "
           "row equals the legacy engine on the same inputs", flush=True)
@@ -1370,8 +1445,9 @@ def smoke(args, pool) -> int:
               f"legacy probe {adaptive.pick(cycles)} {cycles}")
     resolved = {j[0].bench: j[1]["eviction"] for j in probe_jobs}
     family_train = sum(r["train_seconds"] for r in frows)
-    print(f"phase 13 {card}: {FAMILY} family, {len(frows)} rows on cuda in "
-          f"{family_s:.1f} s (training {family_train:.1f} s, "
+    print(f"phase 13 {card}: {FAMILY} family, {len(frows)} rows (per backend "
+          f"{per_backend(frows)}) in {family_s:.1f} s (training "
+          f"{family_train:.1f} s, "
           f"{sum(1 for r in frows if r['train_seconds'])} fits); launches "
           f"{family_counts}; adaptive at half the working set resolved by "
           f"{len(probe_jobs)} probes on K1 to {resolved}, each equal to the "
@@ -1487,8 +1563,7 @@ def smoke(args, pool) -> int:
     check(f10_launches["lane_replay"] > 0 and not any(
         f10_launches[k] for k in f10_launches if k != "lane_replay"),
         f"Fig 10 launches {f10_launches}: K1 only")
-    check(all(r["backend"] == "cuda" for r in f10_grid),
-          "a Fig 10 row did not run on the cuda backend")
+    all_cuda(f10_grid, "a Fig 10 row")
     # Fig 10's rows of one bench against the legacy engine on the same
     # predictions (its tree row and its four learned rows)
     fchk = [(c, r) for c, r in zip(fig10_cells, f10_grid)
@@ -1505,8 +1580,9 @@ def smoke(args, pool) -> int:
     print(f"phase 14 {card}: the paper's predictor tables in {ptables_s:.1f} "
           f"s, {n_fits} fits on cuda (training {ptrain:.1f} s, set-up and "
           f"evaluation {peval:.1f} s); launches {ptables_counts}; Fig 10 "
-          f"trained nothing (K1 launches {f10_launches['lane_replay']}) and "
-          f"its {len(fchk)} {FIG10_CHECK_BENCH} rows equal the legacy engine",
+          f"trained nothing (K1 launches {f10_launches['lane_replay']}, rows "
+          f"per backend {per_backend(f10_grid)}) and its {len(fchk)} "
+          f"{FIG10_CHECK_BENCH} rows equal the legacy engine",
           flush=True)
     titles = {
         "table1": "Table 1: Transformer-based UVM page prediction",
@@ -1965,8 +2041,166 @@ def smoke(args, pool) -> int:
     print(f"phase 15: K3 launches by path {by_path('int4_matmul')}; K2 "
           f"{by_path('hlsh_attention')}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- phase 16: the backend chain on the card -------------------------
+    # one cell for each route on which K1 declines, through run_sweep or
+    # dispatch with backend "cuda": each lands on the NumPy engine, names
+    # why, launches nothing, and equals the legacy engine (in the host
+    # workers, started first)
+    from repro_torch.uvm.backends.cuda_backend import (
+        MAX_TREE_LANE_ACCESSES, decline_reason)
+    from repro_torch.uvm.replay_core import dispatch
+    reset_counts()
+    t0 = time.perf_counter()
+    near = traces[CHAIN_BENCH]
+    far = relocated(traces[FAR_BENCH], FAR_ARRAY, FAR_SHIFT)
+    wtrace = sweep.load_trace(*WINDOWS_TRACE)
+
+    def half(tr):
+        return int(tr.working_set_pages * 0.5)
+
+    direct = {
+        "oracle lookahead 1024": lambda: ReplayRequest(
+            near, OraclePrefetcher(np.asarray(near.pages), lookahead=1024),
+            UVMConfig(device_pages=half(near))),
+        f"{len(wtrace)} step windows": lambda: ReplayRequest(
+            wtrace, NoPrefetcher(), UVMConfig(device_pages=half(wtrace)),
+            step_bounds=np.arange(1, len(wtrace) + 1, dtype=np.int64)),
+        f"span past {FAR_SHIFT} pages": lambda: ReplayRequest(
+            far, TreePrefetcher(), UVMConfig(device_pages=half(far),
+                                             eviction="hotcold")),
+    }
+    fig11_cells = {pf: paper_tables.eval_cell(paper_tables.FIG11_BENCH, pf)
+                   for pf in ("tree", "learned")}
+    long_cell = sweep.SweepCell(LONG_TREE_BENCH, "tree",
+                                scale=LONG_TREE_SCALE)
+    long_name = f"tree, {LONG_TREE_BENCH} at scale {LONG_TREE_SCALE}"
+    swept = {f"Fig 11 {pf}": c for pf, c in fig11_cells.items()}
+    swept[long_name] = long_cell
+    swept_reqs = {}
+    for name, cell in swept.items():
+        tr, cfg, pf, _ = sweep.prepare_cell(cell, device="cuda")
+        swept_reqs[name] = ReplayRequest(
+            tr, pf, cfg, record_timeline=name.startswith("Fig 11"))
+    check(len(swept_reqs[long_name].trace) > MAX_TREE_LANE_ACCESSES,
+          f"{long_name}: {len(swept_reqs[long_name].trace)} accesses, not "
+          f"past K1's tree ceiling {MAX_TREE_LANE_ACCESSES}")
+    probe_of = adaptive.probe_proxy("tree")
+
+    def probes():
+        return adaptive.probe_requests(far, half(far),
+                                       adaptive.PROBE_ACCESSES, probe_of)
+
+    jobs = ([f() for f in direct.values()] + list(swept_reqs.values())
+            + probes())
+    chain_legacy = [pool.submit(legacy_replay, r) for r in jobs]
+    launches_before = lane_replay.launches
+    fig11 = paper_tables.fig11_timeline(device="cuda")
+    chain_rows = {f"Fig 11 {pf}": row for pf, (row, _) in fig11.items()}
+    (chain_rows[long_name],) = sweep.run_sweep([long_cell], device="cuda")
+    dstats = {name: dispatch(f(), "cuda", "cuda")
+              for name, f in direct.items()}
+    chosen = adaptive.resolve_all([("adaptive", far.name, far, half(far),
+                                    "tree")], device="cuda")[0]
+    pstats = [dispatch(r, "cuda", "cuda") for r in probes()]
+    cell_req = ReplayRequest(far, TreePrefetcher(), UVMConfig(
+        device_pages=half(far), eviction=chosen))
+    dstats[f"adaptive (chose {chosen})"] = dispatch(cell_req, "cuda", "cuda")
+    torch.cuda.synchronize()
+    chain_card_s = time.perf_counter() - t0
+    path_launches["chain"] = read_counts()
+    check(lane_replay.launches == launches_before,
+          f"K1 launched {lane_replay.launches - launches_before} times on "
+          "the chain's declined cells")
+    reasons = {name: decline_reason(f()) for name, f in direct.items()}
+    reasons.update({name: decline_reason(r)
+                    for name, r in swept_reqs.items()})
+    reasons[f"adaptive (chose {chosen})"] = decline_reason(cell_req)
+    reasons.update({f"probe {r.config.eviction}": decline_reason(r)
+                    for r in probes()})
+    chain_stats = [f.result() for f in chain_legacy]
+    chain_want = dict(zip(list(direct) + list(swept_reqs), chain_stats))
+    plegacy = chain_stats[len(direct) + len(swept_reqs):]
+    chain_want[f"adaptive (chose {chosen})"] = legacy_replay(ReplayRequest(
+        far, TreePrefetcher(), UVMConfig(device_pages=half(far),
+                                         eviction=chosen)))
+    for name, st in dstats.items():
+        check(st.backend == "numpy", f"chain {name}: backend {st.backend}")
+        same_stats(st, chain_want[name], f"chain {name} vs legacy")
+    for name, row in chain_rows.items():
+        check(row["backend"] == "numpy",
+              f"chain {name}: backend {row['backend']}")
+        same_row(row, chain_want[name], f"chain {name}")
+    for pf, (row, gbs) in fig11.items():
+        tl = np.asarray(row["timeline"])
+        wtl = chain_want[f"Fig 11 {pf}"].timeline
+        check(tl.shape == wtl.shape and np.allclose(tl, wtl, rtol=1e-6,
+                                                    atol=0.0),
+              f"Fig 11 {pf}: the timeline differs from the legacy engine's")
+        check(row["train_seconds"] == 0.0,
+              f"Fig 11 {pf} trained: the main path's cache must serve it")
+    pcycles = tuple(float(st.cycles) for st in plegacy)
+    for st, w in zip(pstats, plegacy):
+        check(st.backend == "numpy", f"chain probe: backend {st.backend}")
+        same_stats(st, w, f"chain probe {st.eviction} vs legacy")
+    check(adaptive.probed(far, half(far), "tree")
+          == (adaptive.pick(pcycles), pcycles) and chosen == adaptive.pick(
+              pcycles), f"chain adaptive: chose {chosen}, the legacy engine's "
+          f"probe {adaptive.pick(pcycles)} {pcycles}")
+    check(all(reasons.values()), f"a chain cell K1 accepts: {reasons}")
+    chain_s = time.perf_counter() - t0
+    print(f"phase 16 {card}: the backend chain, "
+          f"{len(dstats) + len(chain_rows)} "
+          f"cells and {len(pstats)} probes K1 declines, all on numpy and "
+          f"equal to the legacy engine (timelines element by element), K1 "
+          f"launches {path_launches['chain']['lane_replay']}; the card's "
+          f"side {chain_card_s:.1f} s, whole phase {chain_s:.1f} s",
+          flush=True)
+    for name, why in reasons.items():
+        print(f"  {name}: numpy, because {why}")
+    print(f"phase 16: Fig 11 ({paper_tables.FIG11_BENCH}, PCIe GB/s in "
+          f"windows of 10,000 cycles at {paper_tables.CORE_MHZ:.0f} MHz): "
+          + "; ".join(f"{pf} {len(g)} windows, peak {g[:, 1].max():.3f}, "
+                      f"mean {g[:, 1].mean():.3f}, {len(row['timeline'])} "
+                      "transfers" for pf, (row, g) in fig11.items())
+          + "; the first windows with traffic:")
+    print("prefetcher,cycle,gbs")
+    for pf, (_, gbs) in fig11.items():
+        for cyc, rate in gbs[gbs[:, 1] > 0][:5]:
+            print(f"{pf},{cyc:.0f},{rate:.3f}")
+    # what a declined cell costs: accesses per second of the legacy loop,
+    # the NumPy engine and a one-lane K1 batch (its packing included) on
+    # the chain bench at half its working set, each family under lru, two
+    # replays each, in turns
+    thru = []
+    for name in ("none", "tree", "learned", "oracle"):
+        cfg = UVMConfig(device_pages=half(near))
+        secs = {"legacy": 0.0, "numpy": 0.0, "cuda": 0.0}
+        for engine in ("legacy", "numpy", "cuda", "cuda", "numpy", "legacy"):
+            req = ReplayRequest(near, makers[name](near, cfg), cfg)
+            t1 = time.perf_counter()
+            st = get_backend(engine, "cuda").replay([req])[0]
+            torch.cuda.synchronize()
+            secs[engine] += time.perf_counter() - t1
+            if engine == "legacy":
+                base = st
+            else:
+                same_stats(st, base, f"throughput {name}: {engine} vs "
+                           "legacy")
+        thru.append({"family": {"none": "demand"}.get(name, name),
+                     "accesses": len(near), **{
+                         f"{e}_acc_per_s": 2 * len(near) / sec
+                         for e, sec in secs.items()}})
+    print(f"phase 16 {card}: accesses per second on {CHAIN_BENCH} "
+          f"({len(near)} accesses, half the working set, lru): "
+          + "; ".join(f"{t['family']} legacy {t['legacy_acc_per_s']:.0f}, "
+                      f"numpy {t['numpy_acc_per_s']:.0f}, K1 one lane "
+                      f"{t['cuda_acc_per_s']:.0f}" for t in thru)
+          + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "fig11_bicg_timeline.csv"),
+                  "w") as f:
+            f.write(paper_tables.fig11_csv(fig11))
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "rows": rows,
                        "table10": t10, "table11": t11,
@@ -1980,7 +2214,11 @@ def smoke(args, pool) -> int:
                        "family_s": family_s, "predictor_tables": ptables,
                        "predictor_table_stats": ptable_stats,
                        "predictor_table_fits": fits,
-                       "predictor_tables_s": ptables_s}, f, indent=1)
+                       "predictor_tables_s": ptables_s,
+                       "fig12": fig12, "headline": headline,
+                       "ipc": ipc_rows, "chain_reasons": reasons,
+                       "chain_s": chain_s, "throughput": thru}, f,
+                      indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,7 +24,10 @@ One departure, deliberate: the reference replays its probes on its NumPy
 engine, one at a time; the port replays them as K1 lanes, every probe a
 grid needs in one backend call (:func:`resolve_all`), which packs them
 into one lane batch per (proxy family, policy).  K1's cycles equal the
-legacy engine's, so the choice is the same.  A probe K1 declines raises.
+legacy engine's, so the choice is the same.  A probe K1 declines (a prefix
+whose page span is past K1's ceiling) replays through
+``replay_core.dispatch`` on the NumPy engine, as every reference probe
+does.
 """
 from __future__ import annotations
 
@@ -179,9 +182,10 @@ def resolve_all(jobs: Iterable[Tuple], probe_accesses: int = PROBE_ACCESSES,
                 device: str = "cuda") -> List[str]:
     """Resolve many cells' eviction policies at once.  ``jobs`` holds one
     ``(policy, bench, trace, device_pages, prefetcher)`` per cell; every
-    probe the memo lacks runs as a K1 lane in one backend call (on
-    ``device``: the kernel on CUDA, its plain version on the CPU)."""
-    from repro_torch.uvm.replay_core import get_backend
+    probe the memo lacks that K1 accepts runs as a K1 lane in one backend
+    call (on ``device``: the kernel on CUDA, its plain version on the CPU),
+    and every other one down the chain through ``dispatch``."""
+    from repro_torch.uvm.replay_core import dispatch, get_backend
     choices: List[Optional[str]] = []
     keys: List[Optional[Tuple]] = []
     pending: Dict[Tuple, List] = {}
@@ -202,10 +206,14 @@ def resolve_all(jobs: Iterable[Tuple], probe_accesses: int = PROBE_ACCESSES,
         choices.append(choice)
         keys.append(key)
     if pending:
-        stats = iter(get_backend("cuda", device).replay(
-            [r for reqs in pending.values() for r in reqs]))
-        for key, reqs in pending.items():
-            cycles = tuple(float(next(stats).cycles) for _ in reqs)
+        k1 = get_backend("cuda", device)
+        reqs = [r for rs in pending.values() for r in rs]
+        lanes = [i for i, r in enumerate(reqs) if k1.can_replay(r)]
+        got = dict(zip(lanes, k1.replay([reqs[i] for i in lanes])))
+        stats = iter([got[i] if i in got else dispatch(r, "cuda", device)
+                      for i, r in enumerate(reqs)])
+        for key, rs in pending.items():
+            cycles = tuple(float(next(stats).cycles) for _ in rs)
             _MEMO[key] = (pick(cycles), cycles)
     return [c if k is None else _MEMO[k][0] for c, k in zip(choices, keys)]
 

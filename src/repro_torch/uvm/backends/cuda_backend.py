@@ -12,9 +12,10 @@ This backend replays every lane family (``demand``, ``tree``, ``learned``,
 ``oracle``) under the ``lru``, ``random`` and ``hotcold`` eviction
 policies, single-tenant or two-tenant (shared capacity or hard per-tenant
 quotas), with or without step clocks (``ReplayRequest.step_bounds``).
-There is no silent fallback: a request this backend declines (timelines,
-lanes past the kernel's ceilings) raises, naming the later slice of the
-port that brings it.
+:func:`decline_reason` names why it declines a request (timelines, lanes
+past the kernel's ceilings); :meth:`CudaReplayBackend.replay` raises on
+such a request, and ``replay_core.dispatch`` sends it down the chain to
+the NumPy chunked engine instead.
 """
 from __future__ import annotations
 
@@ -120,8 +121,7 @@ def _step_bounds_reason(request: ReplayRequest) -> Optional[str]:
                 "n_accesses")
     if sb.size > MAX_LANE_STEPS:
         return (f"{sb.size} step windows outside 1..{MAX_LANE_STEPS} (K1's "
-                "per-lane window clocks); more windows need the NumPy "
-                "chunked engine, a later slice of the port")
+                "per-lane window clocks)")
     return None
 
 
@@ -134,10 +134,10 @@ def decline_reason(request: ReplayRequest) -> Optional[str]:
     kind = family.split("/")[0]
     if request.config.eviction not in PORTED_POLICIES:
         return (f"eviction={request.config.eviction!r} is not a K1 policy "
-                f"({', '.join(PORTED_POLICIES)}); the adaptive pseudo-policy "
-                "is resolved by the sweep in a later slice of the port")
+                f"({', '.join(PORTED_POLICIES)}); the sweep resolves the "
+                "adaptive pseudo-policy before the replay")
     if request.record_timeline:
-        return "per-transfer timelines are a later slice of the port"
+        return "K1 records no per-transfer timeline"
     if request.step_bounds is not None:
         reason = _step_bounds_reason(request)
         if reason is not None:
@@ -153,15 +153,12 @@ def decline_reason(request: ReplayRequest) -> Optional[str]:
     n = len(request.trace.pages)
     if n == 0 or n > _FAMILY_MAX_ACCESSES[kind]:
         return (f"trace length {n} outside 1..{_FAMILY_MAX_ACCESSES[kind]} "
-                f"(the {kind} family's int32 stamp ceiling); longer lanes "
-                "need the NumPy chunked engine, a later slice of the port")
+                f"(the {kind} family's int32 stamp ceiling)")
     if kind == "learned" and len(pf.predicted_pages) < n:
         return "the learned decision stream is shorter than the trace"
     if kind == "oracle" and not 0 < pf.lookahead <= MAX_ORACLE_LOOKAHEAD:
         return (f"oracle lookahead {pf.lookahead} outside "
-                f"1..{MAX_ORACLE_LOOKAHEAD} (one thread per window entry); "
-                "wider windows need the NumPy chunked engine, a later slice "
-                "of the port")
+                f"1..{MAX_ORACLE_LOOKAHEAD} (one thread per window entry)")
     lo, hi = dense_bounds(request.trace, pf)
     if lo < 0 or hi - lo > min(request.max_span_pages, MAX_LANE_SPAN_PAGES):
         return f"page span [{lo}, {hi}) outside the lane ceiling"
@@ -254,7 +251,9 @@ class CudaReplayBackend(ReplayBackend):
             reason = decline_reason(req)
             if reason is not None:
                 raise ValueError(f"cuda backend cannot replay "
-                                 f"{req.trace.name}: {reason}")
+                                 f"{req.trace.name}: {reason} "
+                                 "(replay_core.dispatch sends such a "
+                                 "request down the backend chain)")
         out: List[UVMStats] = [None] * len(requests)  # type: ignore
         for batch in self.pack_lanes(requests):
             for i, stats in zip(batch, self._replay_batch(

@@ -22,7 +22,7 @@ import dataclasses
 import functools
 import shutil
 import tempfile
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -231,3 +231,10 @@ def stats_to_dict(stats: UVMStats) -> Dict:
         out["tenant_hits"] = [int(x) for x in stats.tenant_hits]
         out["tenant_accesses"] = [int(x) for x in stats.tenant_accesses]
     return out
+
+
+def iter_golden_cells() -> Iterator[Tuple[str, Trace, UVMConfig,
+                                          Callable[[], Prefetcher]]]:
+    for cell_id in golden_cell_ids():
+        trace, config, factory = golden_cell(cell_id)
+        yield cell_id, trace, config, factory

@@ -1,10 +1,22 @@
-"""Serving SLO percentiles -- the port's copy of the percentile helpers of
-the reference ``repro.uvm.metrics`` (the serve rows' latency columns)."""
+"""Evaluation metrics (paper §7.6) and serving SLO percentiles -- the port's
+copy of the reference ``repro.uvm.metrics``: Unity, the geometric mean of
+the paper's summaries, the PCIe GB/s timeline of Fig 11, and the serve
+rows' latency percentiles."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def unity(accuracy: float, coverage: float, hit_rate: float) -> float:
+    """Unity := cbrt(Accuracy * Coverage * Page_hit_rate); 1.0 is perfect."""
+    return float(np.cbrt(accuracy * coverage * hit_rate))
+
+
+def geomean(xs: Iterable[float]) -> float:
+    xs = np.asarray(list(xs), dtype=np.float64)
+    return float(np.exp(np.mean(np.log(np.maximum(xs, 1e-12)))))
 
 
 def sorted_percentiles(sorted_samples: np.ndarray,
@@ -55,3 +67,33 @@ def slo_percentiles(samples: Sequence[float], prefix: str,
         return {f"{prefix}_p{q}_us": None for q in qs}
     vals = sorted_percentiles(np.sort(arr), qs)
     return {f"{prefix}_p{q}_us": float(v) for q, v in zip(qs, vals)}
+
+
+def pcie_gbs_timeline(timeline: np.ndarray, core_mhz: float,
+                      window_cycles: float = 10_000.0) -> np.ndarray:
+    """(cycle, bytes) transfer events -> (window_center_cycle, GB/s) rows.
+
+    Events may arrive in any order (binning is order-independent), but
+    every cycle stamp must be finite and non-negative: a negative stamp
+    floor-divides to a negative window index, which ``np.add.at`` wraps
+    to the *tail* window — the bandwidth spike lands on the wrong end of
+    the plot with no error.  Reject instead of mis-binning."""
+    if timeline is None or len(timeline) == 0:
+        return np.zeros((0, 2))
+    if window_cycles <= 0:
+        raise ValueError(f"window_cycles must be positive: {window_cycles}")
+    t = timeline[:, 0]
+    b = timeline[:, 1]
+    if not np.isfinite(t).all() or (t < 0).any():
+        bad = int(((~np.isfinite(t)) | (t < 0)).sum())
+        raise ValueError(
+            f"invalid PCIe timeline: {bad} of {t.size} cycle stamps are "
+            "negative or non-finite (negative stamps would wrap into the "
+            "tail window)")
+    n_win = int(t.max() // window_cycles) + 1
+    idx = (t // window_cycles).astype(np.int64)
+    acc = np.zeros(n_win)
+    np.add.at(acc, idx, b)
+    secs = window_cycles / (core_mhz * 1e6)
+    centers = (np.arange(n_win) + 0.5) * window_cycles
+    return np.stack([centers, acc / secs / 1e9], axis=1)

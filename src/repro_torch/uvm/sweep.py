@@ -1,5 +1,6 @@
 """Batched UVM sweep on the port: (trace × prefetcher × config) grids
-replayed as multi-lane K1 batches.
+replayed as multi-lane K1 batches, and down the backend chain where K1
+declines.
 
 A slim port of the reference ``repro.uvm.sweep``: the same cells, grid
 expansion, trace windows, learned-predictor training through the prediction
@@ -17,11 +18,21 @@ pseudo-policy (``repro_torch.uvm.adaptive``, resolved per cell before its
 replay config exists); it raises on anything else.  The reference's lease
 pool and resume are later slices.
 
+Every cell whose engine is ``auto``/``vectorized`` and whose backend chain
+starts at ``cuda`` (``replay_core.backend_chain``), and that K1 accepts,
+packs into a K1 lane batch.  Every other cell (``engine="legacy"``,
+``backend="numpy"``, or a request K1 declines: per-transfer timelines,
+lanes past K1's length or span ceilings, more than 65,536 step windows,
+oracle lookahead above 512) replays on its own through
+``replay_core.dispatch``, on the NumPy chunked engine or the legacy loop.
+Each row's ``backend`` column names the backend that ran it.
+
 Three departures from the reference, all deliberate: a row that arrives
 without the step clocks it needs raises (the reference re-replays it on
 its NumPy engine); the tenants' solo replays behind the slowdown columns,
-and the adaptive policy's probe replays, run as K1 lanes (the reference
-replays them one at a time on its NumPy engine).
+and the adaptive policy's probe replays, run as K1 lanes where K1 accepts
+them (the reference replays them one at a time on its NumPy engine); and
+the cells' default backend is ``cuda`` (the reference's ``auto``).
 
 Programmatic use::
 
@@ -41,6 +52,8 @@ CLI::
     PYTHONPATH=src python -m repro_torch.uvm.sweep --benches ATAX \\
         --prefetchers learned --model-families simplified,transformer \\
         --device-fracs 0.5 --evictions adaptive
+    PYTHONPATH=src python -m repro_torch.uvm.sweep --benches ATAX,BICG \\
+        --prefetchers none,tree --engine legacy --device cpu
 """
 from __future__ import annotations
 
@@ -66,7 +79,9 @@ from repro_torch.uvm.eviction import EVICTION_POLICIES
 from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
                                          NoPrefetcher, OraclePrefetcher,
                                          Prefetcher, TreePrefetcher)
-from repro_torch.uvm.replay_core import ReplayRequest, get_backend
+from repro_torch.uvm.engine import ENGINES
+from repro_torch.uvm.replay_core import (ReplayRequest, backend_chain,
+                                         dispatch, get_backend)
 from repro_torch.uvm.simulator import UVMStats
 
 #: cell-spec prefetcher names to concrete types, in the reference's order
@@ -74,6 +89,10 @@ _PREFETCHER_TYPES = {"none": NoPrefetcher, "block": BlockPrefetcher,
                      "tree": TreePrefetcher, "learned": LearnedPrefetcher,
                      "oracle": OraclePrefetcher}
 PREFETCHERS = tuple(_PREFETCHER_TYPES)
+#: a cell's backend: the first of its chain (``auto`` and ``cuda``: K1, then
+#: the NumPy engine, then the legacy loop; ``numpy``: the NumPy engine, then
+#: the legacy loop)
+BACKENDS = ("auto", "numpy", "cuda")
 #: eviction policies the port replays; a cell may also name the
 #: ``adaptive`` pseudo-policy, which resolves to one of them
 EVICTIONS = EVICTION_POLICIES
@@ -152,7 +171,7 @@ def parse_capacity_split(split: Optional[str]
 
 
 def check_cell(cell: SweepCell) -> None:
-    """Raise on a cell the port cannot run (yet), naming the later slice."""
+    """Raise on a cell the port cannot run, naming why."""
     from repro_torch.offload.serve_trace import is_serve_bench
     from repro_torch.traces.generators import BENCHMARKS
     from repro_torch.traces.interleave import is_mt_bench
@@ -173,8 +192,12 @@ def check_cell(cell: SweepCell) -> None:
                  f"{','.join(_EVICTION_VOCAB)}")
     elif cell.model_family not in MODEL_FAMILIES:
         later = f"unknown model family {cell.model_family!r}"
-    elif cell.backend != "cuda":
-        later = f"backend {cell.backend!r}: the port's only backend is cuda"
+    elif cell.engine not in ENGINES:
+        later = (f"unknown engine {cell.engine!r}; choose from "
+                 f"{','.join(ENGINES)}")
+    elif cell.backend not in BACKENDS:
+        later = (f"unknown backend {cell.backend!r}; choose from "
+                 f"{','.join(BACKENDS)}")
     if later is not None:
         raise ValueError(f"cell {cell.bench}/{cell.prefetcher}: {later}")
 
@@ -188,12 +211,14 @@ def expand_grid(benches: Sequence[str], prefetchers: Sequence[str], *,
                 evictions: Sequence[str] = ("lru",),
                 model_families: Sequence[str] = ("simplified",),
                 capacity_splits: Sequence[Optional[str]] = (None,),
+                engine: str = "auto", backend: str = "cuda",
                 service_steps: int = 150) -> List[SweepCell]:
     """Cartesian product of the sweep axes, in the reference's order."""
     return [SweepCell(bench=bench, prefetcher=pf, scale=scale, seed=seed,
                       window=window, prediction_us=us, device_frac=frac,
-                      eviction=ev, capacity_split=split,
-                      service_steps=service_steps, model_family=fam)
+                      eviction=ev, capacity_split=split, engine=engine,
+                      backend=backend, service_steps=service_steps,
+                      model_family=fam)
             for bench in benches for pf in prefetchers for scale in scales
             for seed in seeds for window in windows for us in prediction_us
             for frac in device_fracs for ev in evictions
@@ -295,7 +320,8 @@ def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
 
 
 def _finish_row(cell: SweepCell, stats: UVMStats,
-                device_pages: Optional[int], seconds: float) -> Dict:
+                device_pages: Optional[int], seconds: float,
+                record_timeline: bool = False) -> Dict:
     row = cell.to_dict()
     row.pop("service_steps", None)
     row.update(
@@ -327,6 +353,8 @@ def _finish_row(cell: SweepCell, stats: UVMStats,
     row.setdefault("slo_source", None)
     for f in MT_FIELDS:
         row.setdefault(f, None)
+    if record_timeline and stats.timeline is not None:
+        row["timeline"] = stats.timeline.tolist()
     return row
 
 
@@ -495,23 +523,36 @@ def _mt_row(cell: SweepCell, trace: Trace, config: UVMConfig,
     return row
 
 
+def _chain(cell: SweepCell) -> str:
+    """The backend chain a cell's replays take: ``legacy`` under the legacy
+    engine, else the cell's backend."""
+    return "legacy" if cell.engine == "legacy" else cell.backend
+
+
 def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
               cache_dir: Optional[str] = None, device: str = "cuda",
-              verbose: bool = False) -> List[Dict]:
+              verbose: bool = False,
+              record_timeline: bool = False) -> List[Dict]:
     """Run a grid of cells; returns rows in the order of ``cells``.
 
     The adaptive cells' probes run first, together; then cells are
     prepared in order (learned cells train or hit the prediction
     cache), the tenants' solo replays of multi-tenant cells join them, and
-    everything replays as homogeneous K1 lane batches; serve and
-    multi-tenant cells carry their step bounds into K1.  Row ``seconds`` is
-    the cell's share of its batch's replay time, and on a multi-tenant row
-    also its share of its solo replays' time (a solo replay's share split
-    evenly among the rows that use it), so the rows' seconds add up to the
+    every replay whose chain starts at ``cuda`` and that K1 accepts replays
+    in homogeneous K1 lane batches; serve and multi-tenant cells carry
+    their step bounds into K1.  Every other replay runs on its own through
+    ``replay_core.dispatch`` (a solo replay takes the chain of the first
+    cell that uses it), and its rows record the backend that ran it.
+    Row ``seconds`` is a lane cell's share of its batch's replay time, or a
+    dispatched cell's own replay time, and on a multi-tenant row also its
+    share of its solo replays' time (a solo replay's time split evenly
+    among the rows that use it), so the rows' seconds add up to the
     sweep's replay time.  Learned rows also carry ``train_seconds`` and
     ``predict_seconds`` (0.0 where the predictions came from the cache; a
     multi-tenant row includes the training of the solo lanes it was the
-    first to need)."""
+    first to need).  ``record_timeline`` asks every replay of the cells
+    for its per-transfer timeline (K1 records none, so such cells take the
+    NumPy engine) and puts it into the row as ``timeline``."""
     for cell in cells:
         check_cell(cell)
     if cache_dir is None and out_dir is not None:
@@ -525,18 +566,26 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
         prepared.append(prepare_cell(cell, cache_dir=cache_dir,
                                      device=device, timings=tm))
         timings.append(tm)
-    requests = [ReplayRequest(tr, pf, cfg, step_bounds=_step_bounds(tr))
+    requests = [ReplayRequest(tr, pf, cfg, record_timeline=record_timeline,
+                              step_bounds=_step_bounds(tr))
                 for tr, cfg, pf, _ in prepared]
+    chains = [_chain(cell) for cell in cells]
     solos, uses = _solo_requests(cells, prepared, timings, cache_dir, device)
     solo_index = {}
     for key, req in solos.items():
         solo_index[key] = len(requests)
         requests.append(req)
+        chains.append(next(_chain(cell) for cell, keys in zip(cells, uses)
+                           if key in keys))
     from repro_torch.traces.interleave import mt_meta
     backend = get_backend("cuda", device)
+    lanes = [i for i, req in enumerate(requests)
+             if backend_chain(chains[i])[0] == "cuda"
+             and backend.can_replay(req)]
     stats: List[Optional[UVMStats]] = [None] * len(requests)
     seconds = [0.0] * len(requests)
-    for batch in backend.pack_lanes(requests):
+    for batch in backend.pack_lanes([requests[i] for i in lanes]):
+        batch = [lanes[j] for j in batch]
         if verbose:
             print(f"[sweep] cuda lanes: replaying {len(batch)} cells in one "
                   "batch", flush=True)
@@ -545,13 +594,24 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
         per_cell = (time.perf_counter() - t0) / len(batch)
         for i, st in zip(batch, got):
             stats[i], seconds[i] = st, per_cell
+    for i, req in enumerate(requests):
+        if stats[i] is not None:
+            continue
+        t0 = time.perf_counter()
+        stats[i] = dispatch(req, chains[i], device)
+        seconds[i] = time.perf_counter() - t0
+        if verbose:
+            print(f"[sweep] {stats[i].backend}: {req.trace.name}/"
+                  f"{req.prefetcher.name}/{req.config.eviction} in "
+                  f"{seconds[i]:.2f} s", flush=True)
     solo_cycles = {key: int(stats[i].cycles) for key, i in solo_index.items()}
     users = collections.Counter(key for keys in uses for key in keys)
     rows: List[Dict] = []
     for i, (cell, (trace, config, _, device_pages)) in enumerate(
             zip(cells, prepared)):
         row = _finish_row(cell, stats[i], device_pages, seconds[i] + sum(
-            seconds[solo_index[key]] / users[key] for key in uses[i]))
+            seconds[solo_index[key]] / users[key] for key in uses[i]),
+            record_timeline)
         row.update(train_seconds=timings[i].get("train_s", 0.0),
                    predict_seconds=timings[i].get("predict_s", 0.0))
         if "top1" in timings[i]:
@@ -568,6 +628,17 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
     if out_dir:
         write_results(rows, out_dir)
     return rows
+
+
+def simulate_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
+                  device: str = "cuda",
+                  record_timeline: bool = False) -> Dict:
+    """Run one cell and return its row (:func:`run_sweep` on one cell).
+    With ``record_timeline`` the row carries the replay's per-transfer
+    ``timeline`` as (cycle, bytes) pairs; K1 records none, so the cell
+    replays on the NumPy engine."""
+    return run_sweep([cell], cache_dir=cache_dir, device=device,
+                     record_timeline=record_timeline)[0]
 
 
 def write_results(rows: List[Dict], out_dir: str) -> None:
@@ -588,7 +659,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.traces.generators import BENCHMARKS
     from repro_torch.traces.interleave import is_mt_bench
     ap = argparse.ArgumentParser(
-        description="Batched UVM sweep on the port (K1 lane batches)")
+        description="Batched UVM sweep on the port (K1 lane batches, the "
+                    "NumPy engine where K1 declines)")
     ap.add_argument("--benches", default="ATAX,BICG,Pathfinder,Hotspot")
     ap.add_argument("--prefetchers", default="none,learned",
                     help=f"comma list from {','.join(PREFETCHERS)}")
@@ -614,7 +686,14 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "repro_torch.uvm.scenarios (e.g. 'oversub-full': "
                          "11 benchmarks x 4 capacity ratios x 3 eviction "
                          "policies x 5 prefetchers) instead of the grid "
-                         "flags")
+                         "flags; --engine/--backend still apply")
+    ap.add_argument("--engine", default="auto", choices=list(ENGINES),
+                    help="replay style: auto/vectorized take the backend "
+                         "chain, legacy forces the per-access loop")
+    ap.add_argument("--backend", default="cuda", choices=list(BACKENDS),
+                    help="first backend of each cell's chain: cuda or auto "
+                         "(K1 lane batches, then the NumPy engine for the "
+                         "cells K1 declines, then legacy) or numpy")
     ap.add_argument("--steps", type=int, default=150,
                     help="predictor training steps of learned cells")
     ap.add_argument("--device", default="cuda",
@@ -626,7 +705,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         from repro_torch.uvm.scenarios import (available_scenarios,
                                                expand_scenario)
         try:
-            cells = expand_scenario(args.scenario)
+            cells = expand_scenario(args.scenario, engine=args.engine,
+                                    backend=args.backend)
         except KeyError:
             ap.error(f"unknown scenario {args.scenario!r}; choose from "
                      f"{','.join(available_scenarios())}")
@@ -678,6 +758,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             prediction_us=[float(x) for x in args.prediction_us.split(",")],
             device_fracs=fracs, evictions=evictions,
             model_families=model_families, capacity_splits=splits,
+            engine=args.engine, backend=args.backend,
             service_steps=args.steps)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda but no CUDA device is available "
@@ -685,7 +766,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     t0 = time.time()
     rows = run_sweep(cells, out_dir=args.out, device=args.device,
                      verbose=True)
-    print(f"\n{len(rows)} cells in {time.time() - t0:.1f}s")
+    per_backend = collections.Counter(r["backend"] for r in rows)
+    print(f"\n{len(rows)} cells in {time.time() - t0:.1f}s; rows per "
+          f"backend {dict(per_backend)}")
     cols = ["bench", "prefetcher", "device_frac", "eviction", "backend",
             "hit_rate", "ipc", "unity"]
     print(",".join(cols))

@@ -4,14 +4,16 @@ matches its plain version, its step-clock and quota lanes equal the legacy
 engine, the paper's Table 10/11 tree rows equal the legacy engine's, K2-K4
 match their plain versions (K3 and K4 also at the edges of each of their
 variants and tilings, K2-K4 at the predictor tables' shapes), the
-predictor's inference goes through K2-K4, and the other archs' inference
-agrees with the CPU.
+predictor's inference goes through K2-K4, the other archs' inference
+agrees with the CPU, and each request K1 declines replays on the NumPy
+engine without a launch, equal to the legacy engine.
 Every test here needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode) and skips without one.  The module imports neither jax nor the
 reference package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import json
 import os
 
@@ -41,7 +43,8 @@ from repro_torch.offload.serve_trace import (build_serve_trace,
 from repro_torch.traces.interleave import build_mt_trace
 from repro_torch.uvm.backends.cuda_backend import CudaReplayBackend
 from repro_torch.uvm.config import UVMConfig
-from repro_torch.uvm.prefetchers import TreePrefetcher
+from repro_torch.uvm.prefetchers import (BlockPrefetcher, NoPrefetcher,
+                                         OraclePrefetcher, TreePrefetcher)
 from repro_torch.uvm.replay_core import ReplayRequest, get_backend
 from repro_torch.uvm.simulator import UVMSimulator
 
@@ -727,3 +730,82 @@ def test_other_archs_inference_matches_the_cpu(device, monkeypatch, name):
         assert rows.float().mean() >= 0.99
     else:
         assert (got - want).abs().max().item() <= 1e-4
+
+
+def _synth_request(pages, prefetcher, **cfg):
+    from repro_torch.traces.trace import Trace, make_records
+    recs = make_records(len(pages))
+    recs["page"] = pages
+    return ReplayRequest(Trace("synth", recs, {}, {}, 100 * len(pages)),
+                         prefetcher, UVMConfig(**cfg))
+
+
+def _cyclic(n, width, base=0):
+    return base + (np.arange(n, dtype=np.int64) * 7) % width
+
+
+#: one request per decline route of K1 (the CPU test's, in
+#: tests/test_torch_chain.py), built fresh per call
+DECLINE_ROUTES = {
+    "oracle_lookahead": lambda: _synth_request(
+        _cyclic(1500, 300), OraclePrefetcher(_cyclic(1500, 300),
+                                             lookahead=1024),
+        device_pages=200),
+    "step_windows": lambda: dataclasses.replace(_synth_request(
+        _cyclic(70_000, 3000), NoPrefetcher(), device_pages=1000,
+        eviction="random"), step_bounds=np.arange(1, 70_001)),
+    "span": lambda: _synth_request(
+        np.stack([_cyclic(800, 400), _cyclic(800, 400, 1 << 20)],
+                 axis=1).ravel(), TreePrefetcher(), device_pages=500,
+        eviction="hotcold"),
+    "tree_length": lambda: _synth_request(
+        _cyclic((1 << 21) + 1, 600), TreePrefetcher()),
+    "timeline": lambda: dataclasses.replace(_synth_request(
+        _cyclic(1500, 600), BlockPrefetcher(), device_pages=400),
+        record_timeline=True),
+}
+
+
+@pytest.mark.parametrize("route", list(DECLINE_ROUTES))
+def test_declined_requests_replay_on_numpy_without_k1(device, route):
+    """Each decline route on the card: K1 declines the request, ``dispatch``
+    on the ``cuda`` chain replays it on the NumPy engine without launching
+    K1, and the result equals the legacy engine (counters exact, floats
+    within 1e-6, step clocks and timeline too)."""
+    from repro_torch.uvm.backends.cuda_backend import decline_reason
+    from repro_torch.uvm.replay_core import dispatch
+    req = DECLINE_ROUTES[route]()
+    assert decline_reason(req) is not None
+    launches = lane_replay.launches
+    got = dispatch(req, "cuda", device)
+    assert lane_replay.launches == launches
+    assert got.backend == "numpy"
+    want_req = DECLINE_ROUTES[route]()
+    want = UVMSimulator(want_req.config, want_req.record_timeline).run(
+        want_req.trace, want_req.prefetcher,
+        step_bounds=want_req.step_bounds)
+    for f in G.INT_FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+    for f in G.FLOAT_FIELDS:
+        assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-6,
+                                                abs=1e-9), f
+    for f in ("step_clocks", "timeline"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g is None) == (w is None), f
+        if w is not None:
+            np.testing.assert_allclose(g, w, rtol=1e-6)
+
+
+def test_accepted_cell_under_auto_runs_on_k1(device):
+    """A cell K1 accepts records ``cuda`` under ``backend="auto"``, and K1
+    launched for it."""
+    cell = sweep.SweepCell("ATAX", "tree", scale=0.25, device_frac=0.5,
+                           backend="auto")
+    launches = lane_replay.launches
+    (row,) = sweep.run_sweep([cell], device=device)
+    assert lane_replay.launches == launches + 1
+    assert row["backend"] == "cuda"
+    trace, config, pf, _ = sweep.prepare_cell(cell, device=device)
+    want = UVMSimulator(config).run(trace, pf)
+    assert (row["hits"], row["faults"], row["pages_evicted"]) == (
+        want.hits, want.faults, want.pages_evicted)

@@ -47,8 +47,10 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr[-4000:]
     # every module of the port was imported, not a vacuous package
     names, count = res.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 34
+    assert int(count) >= 37
     assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
+            "repro_torch.uvm.engine", "repro_torch.uvm.backends.numpy_backend",
+            "repro_torch.uvm.backends.legacy_backend",
             "repro_torch.core.predictor_tables",
             "repro_torch.uvm.golden", "repro_torch.kernels.lane_replay",
             "repro_torch.uvm.backends.cuda_backend",

@@ -184,7 +184,7 @@ def _one_lane(prefetcher, n=64, **cfg):
      {"step_bounds": np.ones(MAX_LANE_STEPS + 1, dtype=np.int64)},
      f"{MAX_LANE_STEPS + 1} step windows outside 1..{MAX_LANE_STEPS}"),
     (lambda: _one_lane(P.BlockPrefetcher()), {"record_timeline": True},
-     "per-transfer timelines are a later slice"),
+     "K1 records no per-transfer timeline"),
     (lambda: _one_lane(P.OraclePrefetcher(np.arange(64), lookahead=513)), {},
      "oracle lookahead 513 outside 1..512"),
     (lambda: _one_lane(P.TreePrefetcher(), n=(1 << 21) + 1), {},
@@ -195,7 +195,7 @@ def test_requests_outside_the_slice_raise(make, kw, why):
     backend = CudaReplayBackend(device="cpu")
     assert not backend.can_replay(req)
     assert why in decline_reason(req)
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="cannot replay"):
         backend.replay([req])
 
 

@@ -67,13 +67,16 @@ def test_expand_grid_is_the_reference_grid_with_families_and_splits():
     pytest.param({"bench": "ATAX+Pathfinder", "capacity_split": "0.5/0.5"},
                  None, id="change4-later slice"),
     ({"capacity_split": "0.5/0.5"}, "capacity splits"),
-    ({"backend": "numpy"}, "backend 'numpy'"),
+    pytest.param({"backend": "numpy"}, None, id="change6-backend 'numpy'"),
+    ({"backend": "bogus"}, "unknown backend 'bogus'"),
+    ({"engine": "bogus"}, "unknown engine 'bogus'"),
 ])
 def test_cells_outside_the_slice_raise(change, match):
     """Cells the port refuses raise, naming why (a quota split needs a
-    multi-tenant bench); serve, multi-tenant and adaptive cells run, and
-    their rows equal the legacy engine (case ids are kept stable across
-    releases of the port)."""
+    multi-tenant bench, an unknown engine or backend); serve, multi-tenant,
+    adaptive and ``backend="numpy"`` cells run, and their rows equal the
+    legacy engine and name the backend that ran them (case ids are kept
+    stable across releases of the port)."""
     cell = sweep.SweepCell(**{"bench": "ATAX", "prefetcher": "none",
                               "scale": 0.1, "device_frac": 0.5,
                               "eviction": "hotcold", **change})
@@ -85,7 +88,7 @@ def test_cells_outside_the_slice_raise(change, match):
     trace, config, pf, _ = sweep.prepare_cell(cell, device="cpu")
     want = UVMSimulator(config).run(trace, pf,
                                     step_bounds=sweep._step_bounds(trace))
-    assert row["backend"] == "cuda"
+    assert row["backend"] == ("numpy" if cell.backend == "numpy" else "cuda")
     for f in ("hits", "late", "faults", "pages_migrated", "pages_evicted"):
         assert row[f] == getattr(want, f), f
     assert row["cycles"] == pytest.approx(want.cycles, rel=1e-6)
@@ -94,10 +97,10 @@ def test_cells_outside_the_slice_raise(change, match):
         # the row records the policy the probe chose, the one that replayed
         assert row["eviction"] == config.eviction == adaptive.probed(
             trace, row["device_pages"], "none")[0]
-    elif cell.capacity_split is None:
+    elif cell.bench.startswith("Serve"):
         assert row["slo_source"] == "kernel"
         assert row["decode_lat_p50_us"] <= row["decode_lat_p99_us"]
-    else:
+    elif cell.capacity_split is not None:
         th, ta = want.tenant_hits, want.tenant_accesses
         assert (row["hit_rate_t0"], row["hit_rate_t1"]) == (
             th[0] / ta[0], th[1] / ta[1])
