@@ -23,8 +23,10 @@ paper's predictor tables and the backend chain on the card:
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
    served on the card (the quantized simplified predictor's weight products
-   on K3), every row replayed by K1; tree and learned rows equal the legacy
-   engine on the same inputs;
+   on K3), every row replayed by K1 and persisted to a cell store; tree and
+   learned rows equal the legacy engine on the same inputs; then the same
+   grid resumed from its cell store: equal rows, no launch, no fit, under
+   5 s;
 6. the paper's Table 10 and Table 11 (tree vs learned, unlimited memory);
    every tree row equals the legacy engine's; Fig 12 (normalised PCIe
    traffic) and the §7.4 headline (IPC gain, hit rates, traffic) from the
@@ -88,14 +90,29 @@ paper's predictor tables and the backend chain on the card:
     ``dispatch`` with ``backend="cuda"``: each row says ``numpy`` and why,
     K1 never launches, and each equals the legacy engine (timelines element
     by element); Fig 11's GB/s series; accesses per second of the legacy
-    loop, the NumPy engine and a one-lane K1 batch per family; then the
-    ``kernels`` line and the result line.
+    loop, the NumPy engine and a one-lane K1 batch per family;
+17. crash safety, each run a process of its own sharing the card: the
+    ``chaos-smoke`` scenario through ``python -m repro_torch.uvm.faults``
+    under its default kill+corrupt+raise plan on K1 (``--backend cuda``:
+    driver kills before lane batches and mid cell-file write, transient K1
+    raises) and, side by side with it on the host, on the NumPy engine
+    with 2 lease workers (worker kills), each with the assertions of
+    ``scripts/ci_check.sh`` (8 rows equal to
+    the fault-free baseline's, at least one fault, an empty quarantine
+    manifest), the K1 rows all ``cuda`` and equal to the NumPy rows; then
+    the learned lease pool (4 traces x learned x 1 and 2 us, predictors
+    trained and served on the card, K2 and K3 in the workers): 4 workers on
+    a fresh cache fit once per trace, a rerun on a copy of its cache trains
+    nothing and equals it, and 1 worker on a fresh cache is timed beside
+    it; then the ``kernels`` line and the result line.
 
 Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
-the NumPy engine or the legacy loop there fails the run.  Each of the nine
-driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16) zeroes the launch counters
-just before it and reads them just after.  The legacy engine's replays
-and the plain versions run in a pool of worker processes on the host.
+the NumPy engine or the legacy loop there fails the run.  Each of the ten
+driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17) zeroes the launch
+counters just before it and reads them just after (phase 17's kernels run
+in its subprocesses, which this process cannot count).  The legacy
+engine's replays and the plain versions run in a pool of worker processes
+on the host.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` (``--out`` also writes the rows
 and kernel records as JSON, and Fig 11's CSV).  Exits non-zero without a
@@ -111,9 +128,12 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -614,20 +634,25 @@ def main(argv=None) -> int:
     pool = concurrent.futures.ProcessPoolExecutor(
         HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=init_worker)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_",
+                            dir=os.path.join(ROOT, "build"))
     try:
-        return smoke(args, pool)
+        return smoke(args, pool, work)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(work, ignore_errors=True)
 
 
-def smoke(args, pool) -> int:
+def smoke(args, pool, work: str) -> int:
+    """Every phase; ``work`` holds the sweeps' cell stores and caches."""
     import numpy as np
     import torch
     from repro_torch.core import predictor_tables
     from repro_torch.core.features import cluster_trace, delta_convergence
     from repro_torch.core.service import PredictorService
     from repro_torch.core.vocab import DeltaVocab
-    from repro_torch.kernels import build
+    from repro_torch.kernels import LAUNCH_LOG_ENV, build, read_launch_log
     from repro_torch.kernels import lane_replay as k1
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
@@ -640,7 +665,7 @@ def smoke(args, pool) -> int:
                                                  VARIANTS, int4_variant,
                                                  unpack_int4)
     from repro_torch.kernels.lane_replay import lane_replay
-    from repro_torch.uvm import adaptive, paper_tables, sweep
+    from repro_torch.uvm import adaptive, faults, paper_tables, sweep
     from repro_torch.uvm import golden as G
     from repro_torch.offload.serve_trace import (serve_latency_columns,
                                                  trace_step_bounds)
@@ -954,9 +979,10 @@ def smoke(args, pool) -> int:
                              scales=[1.0], windows=[0.6],
                              device_fracs=list(FRACS),
                              service_steps=paper_tables.SERVICE_STEPS)
+    main_out = os.path.join(work, "main")
     reset_counts()
     t0 = time.perf_counter()
-    rows = sweep.run_sweep(grid, device="cuda")
+    rows = sweep.run_sweep(grid, out_dir=main_out, device="cuda")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = path_launches["main"] = read_counts()
@@ -999,6 +1025,33 @@ def smoke(args, pool) -> int:
     main_plain = pool.submit(plain_replay, plain_job(k1_batch))
     print(f"phase 5: {len(learned_reqs)} learned and {2 * len(legacy_tree)} "
           "tree rows equal the legacy engine on the same inputs", flush=True)
+    # the same grid again from its cell store: every row loads, nothing
+    # is prepared, replayed, inferred or trained
+    resume_fits = []
+    fit = PredictorService.fit
+
+    def counted_fit(self, *a, **k):
+        resume_fits.append(1)
+        return fit(self, *a, **k)
+
+    PredictorService.fit = counted_fit
+    reset_counts()
+    t0 = time.perf_counter()
+    resumed = sweep.run_sweep(grid, out_dir=main_out, device="cuda")
+    resume_s = time.perf_counter() - t0
+    PredictorService.fit = fit
+    resume_launches = read_counts()
+    check(len(resumed) == len(rows) and faults.rows_digest(resumed)
+          == faults.rows_digest(rows), "phase 5's resume: the rows differ "
+          "from the first run's")
+    check(not any(resume_launches.values()),
+          f"phase 5's resume launched {resume_launches}")
+    check(not resume_fits,
+          f"phase 5's resume trained {len(resume_fits)} predictors")
+    check(resume_s < 5.0, f"phase 5's resume took {resume_s:.2f} s")
+    print(f"phase 5 {card}: resumed from the cell store, {len(resumed)} rows "
+          f"equal to the first run's, launches {resume_launches}, "
+          f"{len(resume_fits)} fits, {resume_s:.3f} s", flush=True)
 
     # ---- phase 6: the paper's Table 10 and Table 11, Fig 12, §7.4 --------
     reset_counts()
@@ -2196,6 +2249,143 @@ def smoke(args, pool) -> int:
                       f"numpy {t['numpy_acc_per_s']:.0f}, K1 one lane "
                       f"{t['cuda_acc_per_s']:.0f}" for t in thru)
           + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- phase 17: crash safety -------------------------------------------
+    # each run is a process of its own (the sweep drivers and their lease
+    # workers share the card with this one): each process of a run logs its
+    # launch counts under the run's own directory (kernels.LAUNCH_LOG_ENV),
+    # and the path's counts are their sums
+    reset_counts()
+    t17 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop(faults.FAULT_PLAN_ENV, None)
+    run_launches = {}
+
+    def run_module(name, module, *argv):
+        """Run ``module`` as a process; return its stdout, its wall and the
+        launches its processes logged."""
+        t0 = time.perf_counter()
+        log_dir = os.path.join(work, "launches", name)
+        res = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                             env=dict(env, **{LAUNCH_LOG_ENV: log_dir}),
+                             capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0,
+              f"{module} {' '.join(argv)}: exit {res.returncode}\n"
+              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        run_launches[name] = read_launch_log(log_dir)
+        return res.stdout, time.perf_counter() - t0
+
+    def chaos_smoke(name, *argv):
+        """``chaos-smoke`` under the default plan, with the assertions of
+        scripts/ci_check.sh: its report, rows and wall."""
+        out = os.path.join(work, name)
+        stdout, wall = run_module(
+            name, "repro_torch.uvm.faults", "--scenario", "chaos-smoke",
+            "--device", "cuda", "--out", out, *argv)
+        report = json.loads(stdout.strip().splitlines()[-1])
+        check(report["cells"] == 8, f"chaos-smoke {name}: {report}")
+        check(report["faults_fired"] > 0,
+              f"chaos-smoke {name} injected no fault: {report}")
+        with open(os.path.join(out, "chaos", "quarantine.json")) as f:
+            manifest = json.load(f)
+        check(manifest["cells"] == [], f"chaos-smoke {name} quarantined "
+              f"{manifest['cells']}")
+        crows = sweep.read_results(os.path.join(out, "chaos"))
+        check(faults.rows_digest(crows) == report["digest"]
+              == faults.rows_digest(sweep.read_results(
+                  os.path.join(out, "baseline"))),
+              f"chaos-smoke {name}: the rows differ from the baseline's")
+        return report, crows, wall
+
+    # (b) runs on the host while (a)'s drivers take turns on the card: both
+    # are mostly processes starting up
+    with concurrent.futures.ThreadPoolExecutor(1) as side:
+        on_numpy = side.submit(chaos_smoke, "chaos_numpy", "--backend",
+                               "numpy", "--workers", "2")
+        report_k1, rows_k1, chaos_k1_s = chaos_smoke("chaos_cuda",
+                                                     "--backend", "cuda")
+        report_np, rows_np, chaos_np_s = on_numpy.result()
+    all_cuda(rows_k1, "a chaos-smoke row on K1")
+    check(run_launches["chaos_cuda"]["lane_replay"] > 0,
+          f"chaos-smoke on K1 logged no K1 launch: {run_launches}")
+    check(all(r["backend"] == "numpy" for r in rows_np),
+          f"chaos-smoke on numpy: rows per backend {per_backend(rows_np)}")
+    for got, want in zip(rows_np, rows_k1):
+        check(all(got[k] == want[k] for k in ("bench", "prefetcher",
+                                                "eviction", "device_pages")),
+              f"chaos-smoke: row order {got['bench']} != {want['bench']}")
+        same_row(got, types.SimpleNamespace(**want),
+                 f"chaos-smoke {got['bench']}/{got['prefetcher']}/"
+                 f"{got['eviction']}, numpy against K1")
+    for name, run, report, wall in (
+            ("K1", "chaos_cuda", report_k1, chaos_k1_s),
+            ("numpy, 2 workers", "chaos_numpy", report_np, chaos_np_s)):
+        print(f"phase 17 {card}: chaos-smoke on {name}, {report['cells']} "
+              f"rows equal to the fault-free baseline's after "
+              f"{report['faults_fired']} faults, {report['restarts']} driver "
+              f"restarts, {report['retries']} cell retries; quarantine "
+              f"empty; {wall:.1f} s (the two runs side by side, so neither "
+              f"wall is its run's own); launches in its processes "
+              f"{run_launches[run]}",
+              flush=True)
+    learned = ["--benches", "ATAX,BICG,Pathfinder,Hotspot", "--prefetchers",
+               "learned", "--prediction-us", "1,2", "--backend", "numpy",
+               "--device", "cuda"]
+
+    def learned_pool(name, *argv):
+        out = os.path.join(work, name)
+        _, wall = run_module(name, "repro_torch.uvm.sweep", *learned,
+                             "--out", out, *argv)
+        lrows = sweep.read_results(out)
+        check(len(lrows) == 8 and all(r["backend"] == "numpy"
+                                      and not r["quarantined"]
+                                      for r in lrows),
+              f"learned pool {name}: {per_backend(lrows)}")
+        return lrows, wall
+
+    rows_a, pool_a_s = learned_pool("learned_a", "--workers", "4")
+    fitted = [r["bench"] for r in rows_a if "fit_top1" in r]
+    check(sorted(fitted) == sorted({r["bench"] for r in rows_a}),
+          f"learned pool: fits on {fitted}, not one per trace")
+    shutil.copytree(os.path.join(work, "learned_a"),
+                    os.path.join(work, "learned_b"))
+    rows_b, pool_b_s = learned_pool("learned_b", "--workers", "1",
+                                    "--no-resume")
+    check(not any("fit_top1" in r or r["train_seconds"] for r in rows_b),
+          "learned pool: the rerun on the copied cache trained")
+    check(faults.rows_digest(rows_b) == faults.rows_digest(rows_a),
+          "learned pool: the rerun's rows differ from the pool's")
+    rows_c, pool_c_s = learned_pool("learned_c", "--workers", "1")
+    for name in ("learned_a", "learned_c"):
+        # the simplified predictor's quantized inference goes through K3,
+        # and through K2 on the HLSH benches (Pathfinder, Hotspot)
+        check(run_launches[name]["hlsh_attention"] > 0
+              and run_launches[name]["int4_matmul"] > 0,
+              f"learned pool {name} logged no K2 or K3 launch: "
+              f"{run_launches[name]}")
+    train_a = sum(r["train_seconds"] for r in rows_a)
+    crash_s = time.perf_counter() - t17
+    check(read_counts() == dict.fromkeys(counted, 0),
+          f"phase 17 launched in this process: {read_counts()}")
+    path_launches["crash"] = {
+        name: sum(c[name] for c in run_launches.values())
+        for name in counted}
+    print(f"phase 17 {card}: the learned lease pool, 8 cells on 4 traces "
+          f"(ATAX, BICG, Pathfinder, Hotspot x 1, 2 us; replay on numpy, "
+          f"predictors on the card): 4 workers {pool_a_s:.1f} s, "
+          f"{len(fitted)} fits ({train_a:.2f} s of training in all); the "
+          f"rerun on its cache {pool_b_s:.1f} s, no fit, rows equal; 1 "
+          f"worker on a fresh cache {pool_c_s:.1f} s (rows equal to the "
+          f"pool's: {faults.rows_digest(rows_c) == faults.rows_digest(rows_a)}"
+          f"); launches in the pool's processes {run_launches['learned_a']}, "
+          f"in the 1-worker run's {run_launches['learned_c']}; the phase's "
+          f"launches {path_launches['crash']}; whole phase {crash_s:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    crash = {"chaos_cuda": report_k1, "chaos_cuda_s": chaos_k1_s,
+             "chaos_numpy": report_np, "chaos_numpy_s": chaos_np_s,
+             "pool_4_workers_s": pool_a_s, "rerun_s": pool_b_s,
+             "pool_1_worker_s": pool_c_s, "pool_train_s": train_a,
+             "phase_s": crash_s, "resume_main_s": resume_s,
+             "launches_by_run": run_launches}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "fig11_bicg_timeline.csv"),
@@ -2217,7 +2407,8 @@ def smoke(args, pool) -> int:
                        "predictor_tables_s": ptables_s,
                        "fig12": fig12, "headline": headline,
                        "ipc": ipc_rows, "chain_reasons": reasons,
-                       "chain_s": chain_s, "throughput": thru}, f,
+                       "chain_s": chain_s, "throughput": thru,
+                       "crash_safety": crash}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -30,6 +30,7 @@ from repro_torch.kernels.lane_replay import (MAX_LANE_STEPS,
                                              N_FPARAMS, N_IPARAMS,
                                              STAT_FIELDS, lane_replay)
 from repro_torch.traces.trace import ROOT_PAGES
+from repro_torch.uvm import faults
 from repro_torch.uvm.eviction import resolve_tenancy
 from repro_torch.uvm.prefetchers import (BlockPrefetcher, LearnedPrefetcher,
                                          NoPrefetcher, OraclePrefetcher,
@@ -254,6 +255,12 @@ class CudaReplayBackend(ReplayBackend):
                                  f"{req.trace.name}: {reason} "
                                  "(replay_core.dispatch sends such a "
                                  "request down the backend chain)")
+        if requests:
+            # an injected raise here is a TransientBackendFault: it leaves
+            # the sweep, which retries the cell on K1, never on another
+            # backend
+            faults.fire("backend.replay",
+                        f"{len(requests)}:{requests[0].trace.name}")
         out: List[UVMStats] = [None] * len(requests)  # type: ignore
         for batch in self.pack_lanes(requests):
             for i, stats in zip(batch, self._replay_batch(

@@ -1,7 +1,8 @@
 """Content-addressed cache of learned-prefetcher prediction arrays, ported
-from the reference ``repro.uvm.predcache``: an in-process memo and a
-checksummed disk store, so a (trace × prediction_us × device_frac) grid
-trains one predictor per (trace, model) pair.
+from the reference ``repro.uvm.predcache``: an in-process memo, a
+checksummed disk store and a training lock, so a (trace × prediction_us ×
+device_frac) grid trains one predictor per (trace, model) pair, across
+processes too.
 
 * Keys hash the trace's access records and instruction count, every
   ``PredictorService`` field that shapes the predictions (including the
@@ -9,10 +10,17 @@ trains one predictor per (trace, model) pair.
   version, and the implementation tag ``torch``: arrays the JAX package
   trained never share a key with the port's.
 * Values are single ``.npz`` files holding the array and its sha256,
-  written by atomic rename; an entry whose checksum fails is quarantined to
-  ``<entry>.corrupt`` with a warning and retrained.
+  written by atomic rename (the ``pred.artifact`` fault site fires after
+  it); an entry whose checksum fails is quarantined to ``<entry>.corrupt``
+  with a warning and retrained.
+* A training lock, a crash-reclaimable lease
+  (``repro_torch.distributed.fault_tolerance``), makes concurrent misses on
+  one key wait for the first trainer's array instead of training again: a
+  lock whose owner pid is dead or whose TTL expired is stolen at once, a
+  holder that stored a corrupt entry is stolen without waiting, and a live
+  but wedged holder is overridden after ``lock_patience_s``.
 
-The reference's training lease and fault-injection hooks are not ported.
+``REPRO_PREDCACHE=0`` disables every cache (one training per call).
 """
 from __future__ import annotations
 
@@ -23,9 +31,12 @@ import tempfile
 import time
 import warnings
 import zipfile
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.uvm import faults
 
 #: the reference's key schema version (3: model identity in the key)
 PREDCACHE_VERSION = 3
@@ -47,6 +58,10 @@ _MEMO: Dict[str, np.ndarray] = {}
 def clear_memo() -> None:
     """Drop the in-process memo (tests)."""
     _MEMO.clear()
+
+
+def enabled() -> bool:
+    return os.environ.get("REPRO_PREDCACHE", "1") != "0"
 
 
 def trace_content_key(trace) -> str:
@@ -91,24 +106,34 @@ def _preds_digest(preds: np.ndarray) -> str:
     return h.hexdigest()
 
 
-def load(cache_dir: str, key: str) -> Optional[np.ndarray]:
-    """A cached array, or None on a miss.  An unreadable or
-    checksum-failing entry is quarantined and reads as a miss."""
+def load_checked(cache_dir: str, key: str
+                 ) -> Tuple[Optional[np.ndarray], bool]:
+    """A cached array and whether the entry was corrupt: ``(array, False)``
+    on a hit, ``(None, False)`` on a miss, ``(None, True)`` when the entry
+    was unreadable or failed its checksum (it is quarantined).  A corrupt
+    entry tells a lock waiter that the holder already finished and failed
+    its write, so waiting out its lease cannot bring a good array."""
     path = _path(cache_dir, key)
     try:
         with np.load(path, allow_pickle=False) as z:
             preds = np.ascontiguousarray(z["preds"])
             sha = str(z["sha"])
     except (FileNotFoundError, NotADirectoryError):
-        return None
+        return None, False
     except (ValueError, EOFError, OSError, KeyError, zipfile.BadZipFile):
         _quarantine(path, "unreadable prediction cache entry")
-        return None
+        return None, True
     if sha != _preds_digest(preds):
         _quarantine(path, "prediction cache checksum mismatch")
-        return None
+        return None, True
     preds.flags.writeable = False
-    return preds
+    return preds, False
+
+
+def load(cache_dir: str, key: str) -> Optional[np.ndarray]:
+    """A cached array, or None on a miss (:func:`load_checked` without the
+    corrupt flag)."""
+    return load_checked(cache_dir, key)[0]
 
 
 def _quarantine(path: str, reason: str) -> None:
@@ -138,30 +163,44 @@ def store(cache_dir: str, key: str, preds: np.ndarray) -> str:
         except OSError:
             pass
         raise
+    faults.corrupt("pred.artifact", path, key)
     return path
+
+
+def _try_lock(lock_path: str, ttl_s: float) -> bool:
+    """Claim a key's training lock, a lease file ({pid, host, ts}): a
+    holder SIGKILLed on this host is stolen at once (dead pid), one
+    elsewhere once its TTL expires; bare-pid lock files read as stale."""
+    return ft.try_acquire_lease(lock_path, ttl_s,
+                                extra={"role": "predcache-train"})
+
+
+def _unlock(lock_path: str) -> None:
+    ft.release_lease(lock_path)
 
 
 def get_or_train(trace, *, steps: int = 150, seed: int = 0,
                  cache_dir: Optional[str] = None,
                  service_kwargs: Optional[Dict] = None,
                  device: str = "cuda",
-                 timings: Optional[Dict[str, float]] = None) -> np.ndarray:
+                 timings: Optional[Dict[str, float]] = None,
+                 lock_poll_s: float = 0.25,
+                 lock_patience_s: float = 900.0) -> np.ndarray:
     """The ``predict_trace`` array for (trace, predictor config), training
-    at most once per key across the memo and the disk cache.  When this
-    call trains, ``timings`` (if given) receives ``train_s`` (fit, including
-    the evaluation pass), ``predict_s``, the fit's held-out ``top1`` and
-    ``f1``, and ``coverage``, the share of accesses with a gated prediction
-    (what ``benchmarks/family_accuracy.py`` reports per family)."""
+    at most once per key across the memo, the disk cache and, through the
+    lock, concurrent processes.  When this call trains, ``timings`` (if
+    given) receives ``train_s`` (fit, including the evaluation pass),
+    ``predict_s``, the fit's held-out ``top1`` and ``f1``, and
+    ``coverage``, the share of accesses with a gated prediction (what
+    ``benchmarks/family_accuracy.py`` reports per family)."""
     from repro_torch.core.service import PredictorService
 
-    svc = PredictorService(steps=steps, seed=seed, device=device,
-                           **(service_kwargs or {}))
-    key = predictions_key(trace, **{f: getattr(svc, f)
-                                    for f in SERVICE_KEY_FIELDS})
-    preds = _MEMO.get(key)
-    if preds is None and cache_dir is not None:
-        preds = load(cache_dir, key)
-    if preds is None:
+    def _service() -> "PredictorService":
+        return PredictorService(steps=steps, seed=seed, device=device,
+                                **(service_kwargs or {}))
+
+    def _train() -> np.ndarray:
+        svc = _service()
         t0 = time.perf_counter()
         svc.fit(trace)
         t1 = time.perf_counter()
@@ -173,7 +212,60 @@ def get_or_train(trace, *, steps: int = 150, seed: int = 0,
                            top1=float(svc.result.metrics["top1"]),
                            f1=float(svc.result.metrics["f1"]),
                            coverage=float(np.mean(preds >= 0)))
-        if cache_dir is not None:
-            store(cache_dir, key, preds)
+        return preds
+
+    if not enabled():
+        return _train()
+    probe = _service()
+    key = predictions_key(trace, **{f: getattr(probe, f)
+                                    for f in SERVICE_KEY_FIELDS})
+    preds = _MEMO.get(key)
+    if preds is not None:
+        return preds
+    if cache_dir is None:
+        preds = _MEMO[key] = _train()
+        return preds
+
+    preds, corrupt = load_checked(cache_dir, key)
+    if preds is None:
+        os.makedirs(cache_dir, exist_ok=True)
+        lock = _path(cache_dir, key) + ".lock"
+        got = _try_lock(lock, lock_patience_s)
+        if not got and corrupt:
+            # a corrupt entry under a live lock: its holder trained, stored
+            # and failed, so waiting cannot bring a good array
+            _unlock(lock)
+            got = _try_lock(lock, lock_patience_s)
+        if not got:
+            # another live process trains this key: wait for its array,
+            # re-probing the lease each poll so a holder that dies is
+            # reclaimed at once
+            deadline = time.monotonic() + lock_patience_s
+            while time.monotonic() < deadline:
+                preds, corrupt = load_checked(cache_dir, key)
+                if preds is not None:
+                    break
+                if corrupt:
+                    _unlock(lock)
+                    got = _try_lock(lock, lock_patience_s)
+                    break
+                if _try_lock(lock, lock_patience_s):
+                    got = True           # holder released, died, or TTL'd
+                    break
+                time.sleep(lock_poll_s)
+            if preds is None and not got:
+                # patience spent: the holder is alive but wedged; steal the
+                # lock (the worst case is a duplicate, identical training)
+                _unlock(lock)
+                got = _try_lock(lock, lock_patience_s)
+        if preds is None:
+            try:
+                preds = load(cache_dir, key)   # double-check under the lock
+                if preds is None:
+                    preds = _train()
+                    store(cache_dir, key, preds)
+            finally:
+                if got:
+                    _unlock(lock)
     _MEMO[key] = preds
     return preds

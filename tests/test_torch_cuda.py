@@ -6,7 +6,10 @@ match their plain versions (K3 and K4 also at the edges of each of their
 variants and tilings, K2-K4 at the predictor tables' shapes), the
 predictor's inference goes through K2-K4, the other archs' inference
 agrees with the CPU, and each request K1 declines replays on the NumPy
-engine without a launch, equal to the legacy engine.
+engine without a launch, equal to the legacy engine.  The crash-safety
+plane runs on the card too: ``chaos-smoke`` on K1 converges, a lease pool
+spawned from a CUDA process trains once per trace, and two processes
+asking for one prediction key train it once.
 Every test here needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode) and skips without one.  The module imports neither jax nor the
 reference package, so it runs where only PyTorch is installed:
@@ -809,3 +812,106 @@ def test_accepted_cell_under_auto_runs_on_k1(device):
     want = UVMSimulator(config).run(trace, pf)
     assert (row["hits"], row["faults"], row["pages_evicted"]) == (
         want.hits, want.faults, want.pages_evicted)
+
+
+# ---------------------------------------------------------------------------
+# crash safety on the card
+# ---------------------------------------------------------------------------
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+
+
+def test_chaos_smoke_on_k1_converges(device, tmp_path):
+    """``chaos-smoke`` under the default plan with ``--backend cuda``: the
+    drivers replay the 8 cells as K1 lanes on the card, survive the kills
+    and transient K1 raises, and end on the fault-free rows, all ``cuda``,
+    with an empty quarantine manifest."""
+    import subprocess
+    import sys
+    from repro_torch.uvm import faults
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    env.pop(faults.FAULT_PLAN_ENV, None)
+    out = str(tmp_path / "chaos")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.uvm.faults", "--scenario",
+         "chaos-smoke", "--backend", "cuda", "--device", device, "--out",
+         out], env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["cells"] == 8 and report["faults_fired"] > 0
+    with open(os.path.join(out, "chaos", "quarantine.json")) as f:
+        assert json.load(f)["cells"] == []
+    rows = sweep.read_results(os.path.join(out, "chaos"))
+    assert [r["backend"] for r in rows] == ["cuda"] * 8
+    assert faults.rows_digest(rows) == report["digest"]
+
+
+def test_lease_pool_spawns_from_a_cuda_parent(device, tmp_path,
+                                              monkeypatch):
+    """A 2-worker lease pool started by a process that has initialised
+    CUDA: the workers start by spawn, train the learned cells' predictors
+    on the card (one fit per trace, through the prediction cache's lock),
+    and the rows equal those of a serial run that fits its own predictors
+    on a fresh cache (the digest leaves the fit columns aside).  The
+    workers' quantized inference launches K3 (their launch log)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.int4_matmul import int4_matmul
+    log_dir = str(tmp_path / "launches")
+    monkeypatch.setenv(kernels.LAUNCH_LOG_ENV, log_dir)
+    monkeypatch.setattr(int4_matmul, "launches", 0)   # the workers' alone
+    torch.zeros(1, device=device)
+    assert torch.cuda.is_initialized()
+    assert sweep._mp_context().get_start_method() == "spawn"
+    cells = sweep.expand_grid(["ATAX", "Pathfinder"], ["learned"],
+                              scales=[0.25], prediction_us=[1.0, 2.0],
+                              backend="numpy", service_steps=20)
+    pool = sweep.run_sweep(cells, out_dir=str(tmp_path / "pool"),
+                           device=device, workers=2)
+    assert sorted(r["bench"] for r in pool if "fit_top1" in r) == [
+        "ATAX", "Pathfinder"]
+    assert kernels.read_launch_log(log_dir)["int4_matmul"] > 0
+    from repro_torch.uvm import predcache
+    predcache.clear_memo()
+    serial = sweep.run_sweep(cells, out_dir=str(tmp_path / "serial"),
+                             device=device)
+    assert sorted(r["bench"] for r in serial if "fit_top1" in r) == [
+        "ATAX", "Pathfinder"]
+    from repro_torch.uvm import faults
+    assert faults.rows_digest(serial) == faults.rows_digest(pool)
+
+
+def _get_or_train_on_card(cache_dir: str, out_path: str) -> None:
+    """One process's ``get_or_train`` on the card (a spawned child)."""
+    import sys
+    sys.path.insert(0, _SRC)
+    from repro_torch.uvm import predcache
+    from repro_torch.uvm import sweep as child_sweep
+    trace = child_sweep.load_trace("ATAX", 0.25, 0, 0.6)
+    timings = {}
+    preds = predcache.get_or_train(trace, steps=20, cache_dir=cache_dir,
+                                   device="cuda", timings=timings)
+    np.save(out_path, preds)
+    with open(out_path + ".json", "w") as f:
+        json.dump({"trained": "train_s" in timings}, f)
+
+
+def test_two_processes_train_one_key_once(device, tmp_path):
+    """Two spawned processes ask for the same key on the card at once: the
+    training lock lets one fit, the other waits for its array."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    cache = str(tmp_path / "cache")
+    outs = [str(tmp_path / f"p{i}.npy") for i in range(2)]
+    procs = [ctx.Process(target=_get_or_train_on_card, args=(cache, out))
+             for out in outs]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    assert all(p.exitcode == 0 for p in procs)
+    trained = []
+    for out in outs:
+        with open(out + ".json") as f:
+            trained.append(json.load(f)["trained"])
+    assert sorted(trained) == [False, True]
+    np.testing.assert_array_equal(np.load(outs[0]), np.load(outs[1]))
