@@ -5,7 +5,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
 learned-prefetch sweep, the paper's tree-vs-learned tables, the
 oversubscription matrix, the serving matrix, the multi-tenant matrix, the
 predictor-family smoke, a full-width Transformer-family sweep, the
-paper's predictor tables and the backend chain on the card:
+paper's predictor tables, the backend chain, crash safety and the LM
+zoo's serving path on the card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -104,13 +105,30 @@ paper's predictor tables and the backend chain on the card:
     trained and served on the card, K2 and K3 in the workers): 4 workers on
     a fresh cache fit once per trace, a rerun on a copy of its cache trains
     nothing and equals it, and 1 worker on a fresh cache is timed beside
-    it; then the ``kernels`` line and the result line.
+    it;
+18. the LM serve path (``repro_torch.launch.serve``): llama3-8b at full
+    width (32 layers, d_model 4096, 32/8 heads of 128, vocabulary
+    128,256) in bf16, weights drawn on the card from a seed, serving 8
+    requests of 512 prompt tokens for 64 tokens each through the paged KV
+    store (72 blocks against 48 in HBM), K4 the attention of every layer
+    (exactly 32 x 64 launches); a teacher-forced run with attention in the
+    plain version holds K4 on the path's own inputs at every layer and the
+    logits at depth 1 (the full-depth logits are reported: the model is
+    chaotic); the store's dumped trace reloaded and replayed on K1 with
+    step clocks (none, tree x lru x ratios 1.0 and 0.5) equal to the
+    legacy engine; the ten archs at reduced width through prefill and
+    decode (K4 on every arch with attn/eattn/xattn blocks, none on mamba2
+    and recurrentgemma; the reference's prefill-decode parity on five);
+    K4 timed at the prefill's and the last decode step's shapes beside
+    its plain version and ``scaled_dot_product_attention(...,
+    enable_gqa=True)``; then the ``kernels`` line and the result line.
 
 Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
-the NumPy engine or the legacy loop there fails the run.  Each of the ten
-driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17) zeroes the launch
-counters just before it and reads them just after (phase 17's kernels run
-in its subprocesses, which this process cannot count).  The legacy
+the NumPy engine or the legacy loop there fails the run.  Each of the
+twelve driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17, 18's serve and
+18's trace replay) zeroes the launch counters just before it and reads
+them just after (phase 17's kernels run in its subprocesses, which log
+their counts).  The legacy
 engine's replays and the plain versions run in a pool of worker processes
 on the host.
 
@@ -239,9 +257,45 @@ FAMILY = "transformer"
 #: K3 (phase 15): an HLSH bench with many windows
 INFER_BENCH = "NW"
 #: published H100 SXM peaks: HBM bytes/s, float32 FLOP/s outside the
-#: tensor cores
+#: tensor cores, bf16 FLOP/s on the tensor cores (dense)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+#: phase 18, the LM serve path: llama3-8b at full width in bf16, served by
+#: repro_torch.launch.serve (9 KV blocks of 64 tokens a request, 72 in all,
+#: against 48 in HBM, so the store evicts and prefetches)
+LM_ARCH = "llama3-8b"
+LM_SERVE = {"requests": 8, "prompt_len": 512, "gen": 64, "hbm_blocks": 48}
+#: decode steps held against the plain-attention run, teacher-forced
+LM_CHECK_STEPS = 4
+#: the LM path against the same model with attention in the plain version
+#: (on float32 copies of q, k, v), teacher-forced on the K4 run's tokens.
+#: Per call: every attention call of the full-depth model's prefill and
+#: first LM_CHECK_STEPS decode steps runs K4 and the plain version on the
+#: same inputs (the path's own activations); K4's bf16 output is the
+#: float32 result rounded once (at most 2^-8 of the largest output) plus
+#: float32 summation differences: limit max |K4 - plain| <= LM_CALL_TOL x
+#: max |plain|.  End to end, the full-depth logits cannot be held at any
+#: such tolerance: under the reference's initialisation (wq scaled by
+#: 1/sqrt(n_heads)) attention logits have a spread of about 256, so each
+#: softmax is nearly an argmax, a difference in the last bit flips a row's
+#: key, and 32 layers compound the flips (two float32 runs that differ only
+#: in the order of attention's sums give logits 1.1-1.3 apart, relative).
+#: So the full-depth logits are compared and reported, and the logits are
+#: held at depth 1 (the model's first layer, the same weights), where no
+#: flip compounds: limit LM_TOL x max |plain|, 8 bf16 roundings (2^-8) of
+#: the largest logit
+LM_CALL_TOL = 2.0 ** -7
+LM_TOL = 2.0 ** -5
+#: the reference's prefill-decode parity (tests/test_models_zoo.py):
+#: archs, batch, prompt length and tolerance (atol and rtol)
+LM_PARITY_ARCHS = ("llama3-8b", "mamba2-780m", "recurrentgemma-9b",
+                   "internvl2-1b", "seamless-m4t-medium")
+LM_PARITY_B, LM_PARITY_S, LM_PARITY_TOL = 2, 32, 2e-2
+#: the replay of the dumped serve trace: prefetchers under lru, and ratios
+#: of the trace's working set
+LM_REPLAY_PREFETCHERS = ("none", "tree")
+LM_REPLAY_RATIOS = (1.0, 0.5)
 #: bytes that timed calls touch before one touches the same memory again:
 #: four times the H100's 50 MB L2, so each call reads and writes HBM
 ROTATE_BYTES = 200e6
@@ -618,6 +672,337 @@ def k3_against_plain(rng, m, kdim, n, dtype, packer: bool):
         err = max(err, rel_err(want, x @ fake_quant_tensor(w).to(dtype)))
     return err, float((got.float() - want.float()).abs().max()), (
         x, packed, scale)
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| / max |want| in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def k4_lm_record(rng, shape, causal):
+    """K4 at a (B, H, Hkv, Sq, Sk, D) bf16 shape of the LM path, its
+    PyTorch call (one ``scaled_dot_product_attention(..., enable_gqa=True)``
+    on the same tensors; causal only where Sq = Sk, since its causal mask
+    is aligned to the top left, and for Sq = 1 over the cache written so
+    far every key is visible) and its plain version, in turns over rotating
+    copies; its error against the plain version on float32 copies."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     flash_geometry)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, hkv, sq, sk, d = shape
+    _, qkv = k4_against_plain(rng, shape, causal, torch.bfloat16)
+    err = rel_max(flash_attention(*qkv, causal=causal),
+                  flash_attention_plain(*(t.float() for t in qkv),
+                                        causal=causal))
+    nbytes = 2 * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    copies = copies_of(qkv, nbytes)
+    t = timed_in_turns({
+        "kernel": rotating(lambda q, k, v: flash_attention(
+            q, k, v, causal=causal), copies),
+        "library": rotating(lambda q, k, v: sdpa(
+            q, k, v, is_causal=causal and sq == sk, enable_gqa=True),
+            copies),
+        "plain": rotating(lambda q, k, v: flash_attention_plain(
+            q, k, v, causal=causal), copies)})
+    # the (query, key) pairs the mask lets through, a product of D in
+    # each of the two matrix products
+    pairs = (sum(min(sk, i + 1 + sk - sq) for i in range(sq)) if causal
+             else sq * sk)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = 4 * b * h * d * pairs / BF16_FLOPS * 1e3
+    bound = max(by_bytes, by_ops)
+    dev = t["kernel"]["device_ms"]
+    return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+            "path": "LM serve", "rel_err_vs_float32_plain": err,
+            "variant": flash_geometry(b * h, sq, sk, d).name(),
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "ms": t["kernel"]["ms"], "device_ms": dev,
+            "plain_ms": t["plain"]["ms"],
+            "plain_device_ms": t["plain"]["device_ms"],
+            "library_ms": t["library"]["ms"],
+            "library_device_ms": t["library"]["device_ms"],
+            "share_of_bound": None if dev is None else bound / dev,
+            "timing": t["kernel"]["method"]}
+
+
+def lm_phase(card: str, work: str, pool, backend, reset_counts,
+             read_counts) -> dict:
+    """Phase 18, the LM serve path: (a) llama3-8b at full width served by
+    the port's launcher, held against the same model with attention in the
+    plain version; (b) its dumped trace replayed on K1 against the legacy
+    engine; (c) the ten archs at reduced width through prefill and decode;
+    (d) K4 timed at the path's shapes.  Returns the phase's records."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import builder as lmb
+    from repro_torch.models import layers as lml
+    from repro_torch.offload.serve_trace import (load_trace_npz,
+                                                 trace_step_bounds)
+    from repro_torch.uvm.config import UVMConfig
+    from repro_torch.uvm.prefetchers import NoPrefetcher, TreePrefetcher
+    from repro_torch.uvm.replay_core import ReplayRequest
+
+    t18 = time.perf_counter()
+    out = {}
+    # (a) llama3-8b at full width, weights drawn on the card from seed 0
+    cfg = get_arch(LM_ARCH)
+    model = lmb.build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lmb.init_params(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = lm_serve.serve(LM_ARCH, device="cuda", params=params, **LM_SERVE)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gen, b = LM_SERVE["gen"], LM_SERVE["requests"]
+    s = LM_SERVE["prompt_len"]
+    check(launches["flash_attention"] == cfg.n_layers * gen
+          and launches["lane_replay"] == launches["hlsh_attention"]
+          == launches["int4_matmul"] == 0,
+          f"LM serve launches {launches}, not K4 x {cfg.n_layers * gen}")
+    check(res.tokens.shape == (b, gen), f"LM serve tokens {res.tokens.shape}")
+    check(bool(torch.isfinite(res.prefill_logits).all())
+          and bool(torch.isfinite(res.decode_logits).all()),
+          "LM serve: logits not all finite")
+    st = res.stats
+    check(st["evictions"] > 0, f"LM serve: the store never evicted: {st}")
+    # the same model with attention in the plain version (on float32
+    # copies), teacher-forced on the K4 run's tokens: every attention call
+    # also runs K4 on its inputs (comparison launches, not counted above)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).cuda()}
+    call_errs = []
+
+    def plain_attention(q, k, v, causal=False):
+        want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=causal)
+        call_errs.append(rel_max(flash_attention(q, k, v, causal=causal),
+                                 want))
+        return want.to(q.dtype)
+
+    def forced(m, attention, p=params):
+        """Prefill and LM_CHECK_STEPS decode steps of ``m`` on the K4
+        run's tokens: the last-position logits of each."""
+        with mock.patch.object(lml, "flash_attention", attention):
+            logits, states = lmb.prefill(m, p, batch, max_len=s + gen)
+            got = [logits[:, -1]]
+            for step in range(LM_CHECK_STEPS):
+                toks = torch.from_numpy(res.tokens[:, step:step + 1]).cuda()
+                logits, states = lmb.decode(m, p, states, toks, s + step)
+                got.append(logits[:, -1])
+        return got
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    full = forced(model, plain_attention)
+    k4_logits = [res.prefill_logits[:, -1]] + [
+        res.decode_logits[step] for step in range(LM_CHECK_STEPS)]
+    errs = [rel_max(a, b) for a, b in zip(k4_logits, full)]
+    full_agree = [agree(a, b) for a, b in zip(k4_logits, full)]
+    one = lmb.with_counts(model, [1])
+    one_k4 = forced(one, flash_attention)
+    one_plain = forced(one, plain_attention)
+    check(len(call_errs) == (cfg.n_layers + 1) * (1 + LM_CHECK_STEPS)
+          and max(call_errs) <= LM_CALL_TOL,
+          f"LM serve: K4 against the plain version on the path's inputs, "
+          f"{len(call_errs)} calls, relative error up to {max(call_errs)} "
+          f"(limit {LM_CALL_TOL})")
+    one_errs = [rel_max(a, b) for a, b in zip(one_k4, one_plain)]
+    one_agree = [agree(a, b) for a, b in zip(one_k4, one_plain)]
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in full + one_k4),
+          "LM serve: the checks' logits are not all finite")
+    check(max(one_errs) <= LM_TOL, f"LM serve at depth 1: logits against "
+          f"plain attention, relative errors {one_errs} (limit {LM_TOL})")
+    # how far two full-depth runs drift that differ only in rounding
+    # (reported): the plain version in bf16 against it on float32 copies;
+    # then a float32 copy of the model (the bf16 weights converted in
+    # place), K4 against the plain version
+    drift_bf16 = [rel_max(a, b) for a, b in zip(forced(
+        model, flash_attention_plain), full)]
+    del full, one_k4, one_plain, k4_logits
+    model32 = lmb.build_model(dataclasses.replace(cfg, dtype="float32"))
+    params.float()
+    drift_f32 = [rel_max(a, b) for a, b in zip(
+        forced(model32, flash_attention), forced(model32,
+                                                 flash_attention_plain))]
+    tok_s = res.n_decoded / res.decode_s
+    out["serve"] = {
+        "arch": LM_ARCH, **LM_SERVE, "params": n_params, "init_s": init_s,
+        "prefill_ms": res.prefill_s * 1e3, "decode_s": res.decode_s,
+        "decoded": res.n_decoded, "tok_s": tok_s, "store": st,
+        "peak_bytes": peak, "launches": launches,
+        "call_rel_err_max": max(call_errs), "calls_checked": len(call_errs),
+        "full_depth_rel_err": errs, "full_depth_argmax_agree": full_agree,
+        "depth1_rel_err": one_errs, "depth1_argmax_agree": one_agree,
+        "drift_bf16_plain_vs_float32_plain": drift_bf16,
+        "drift_float32_k4_vs_plain": drift_f32}
+    print(f"phase 18 {card}: {LM_ARCH} at full width ({n_params / 1e9:.2f}B "
+          f"bf16 parameters drawn on the card in {init_s:.2f} s), "
+          f"{b} requests x {s} prompt tokens x {gen} generated: prefill "
+          f"{res.prefill_s * 1e3:.1f} ms, {res.n_decoded} tokens decoded in "
+          f"{res.decode_s:.3f} s ({tok_s:.1f} tok/s); kv-store hit rate "
+          f"{st['hit_rate']:.4f}, prefetch accuracy "
+          f"{st['prefetch_accuracy']:.4f}, host bytes {st['host_bytes']:.0f}"
+          f", evictions {st['evictions']:.0f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    print(f"phase 18 {card}: against attention in the plain version "
+          f"(prefill and {LM_CHECK_STEPS} teacher-forced steps): K4 on the "
+          f"path's inputs in {len(call_errs)} calls, relative error up to "
+          f"{max(call_errs):.3g} (limit {LM_CALL_TOL}); logits at depth 1 "
+          f"relative {', '.join(f'{e:.3g}' for e in one_errs)} (limit "
+          f"{LM_TOL}), argmax equal on {one_agree}; logits at full depth "
+          f"(reported, not held: the model is chaotic) relative "
+          f"{', '.join(f'{e:.3g}' for e in errs)}, argmax equal on "
+          f"{full_agree}; full-depth drift between runs that differ only "
+          f"in rounding: the plain version in bf16 against it on float32 "
+          f"copies {', '.join(f'{e:.3g}' for e in drift_bf16)}, a float32 "
+          f"copy of the model, K4 against the plain version "
+          f"{', '.join(f'{e:.3g}' for e in drift_f32)}", flush=True)
+    res.prefill_logits = res.decode_logits = None
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) the dumped trace, reloaded and replayed on K1 with step clocks
+    path = os.path.join(work, "lm_serve_trace.npz")
+    lm_serve.dump_trace(res, path)
+    tr = load_trace_npz(path)
+    bounds = trace_step_bounds(tr)
+    check(list(bounds) == res.step_ends, "the dumped trace's step ends")
+    makers = {"none": NoPrefetcher, "tree": TreePrefetcher}
+    reqs = [ReplayRequest(tr, makers[name](), UVMConfig(
+        device_pages=int(tr.working_set_pages * ratio), eviction="lru"),
+        step_bounds=bounds)
+        for name in LM_REPLAY_PREFETCHERS for ratio in LM_REPLAY_RATIOS]
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = backend.replay(reqs)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay_launches = read_counts()
+    check(replay_launches["lane_replay"] > 0, "the dumped trace: no K1")
+    rows = []
+    for req, got, want in zip(reqs, stats, pool.map(legacy_replay, reqs)):
+        what = (f"dumped {LM_ARCH} trace {type(req.prefetcher).__name__}/"
+                f"{req.config.device_pages} pages")
+        check(got.backend == "cuda" and got.step_clocks is not None,
+              f"{what}: backend {got.backend}")
+        same_stats(got, want, what)
+        rows.append({"prefetcher": type(req.prefetcher).__name__,
+                     "device_pages": req.config.device_pages,
+                     "hit_rate": got.hit_rate,
+                     "faults": int(got.faults), "backend": got.backend})
+    out["trace_replay"] = {"accesses": len(tr), "steps": len(bounds),
+                           "working_set_pages": int(tr.working_set_pages),
+                           "rows": rows, "seconds": replay_s,
+                           "launches": replay_launches}
+    print(f"phase 18 {card}: the dumped trace ({len(tr)} accesses, "
+          f"{len(bounds)} decode steps, working set "
+          f"{tr.working_set_pages} pages) replayed on K1 with step clocks, "
+          f"{len(rows)} rows (none, tree x lru x ratios {LM_REPLAY_RATIOS}) "
+          f"all cuda and equal to the legacy engine, in {replay_s:.2f} s; "
+          f"hit rates {[round(r['hit_rate'], 4) for r in rows]}, faults "
+          f"{[r['faults'] for r in rows]}; launches "
+          f"{replay_launches}", flush=True)
+
+    # (c) the ten archs at reduced width through prefill and decode
+    arch_rows = {}
+    for name in list_archs():
+        rcfg = get_arch(name).reduced()
+        rmodel = lmb.build_model(rcfg)
+        rparams = lmb.init_params(
+            rmodel, torch.Generator(device="cuda").manual_seed(1))
+        prng = np.random.default_rng(1)
+        pb = {"tokens": torch.from_numpy(prng.integers(
+            0, rcfg.vocab, (LM_PARITY_B, LM_PARITY_S))).cuda()}
+        if rcfg.family == "vlm":
+            pb["patches"] = torch.from_numpy(prng.normal(size=(
+                LM_PARITY_B, rcfg.frontend_seq, rcfg.d_model))).float().cuda()
+        if rcfg.family == "audio":
+            pb["frames"] = torch.from_numpy(prng.normal(size=(
+                LM_PARITY_B, LM_PARITY_S // 8, rcfg.d_model))).float().cuda()
+        prefix = rcfg.frontend_seq if rcfg.family == "vlm" else 0
+        reset_counts()
+        logits1, rstates = lmb.prefill(rmodel, rparams, pb,
+                                       max_len=prefix + LM_PARITY_S + 4)
+        nxt = torch.from_numpy(prng.integers(
+            0, rcfg.vocab, (LM_PARITY_B, 1))).cuda()
+        logits_dec, _ = lmb.decode(rmodel, rparams, rstates, nxt,
+                                   prefix + LM_PARITY_S)
+        torch.cuda.synchronize()
+        k4 = read_counts()["flash_attention"]
+        kinds = {k for seg in lmb.all_segments(rmodel) for k in seg.pattern}
+        attends = bool(kinds & {"attn", "eattn", "xattn"})
+        check((k4 > 0) == attends, f"{name}: {k4} K4 launches with blocks "
+              f"{sorted(kinds)}")
+        check(bool(torch.isfinite(logits1).all())
+              and bool(torch.isfinite(logits_dec).all()),
+              f"{name}: logits not finite")
+        row = {"k4": k4, "kinds": sorted(kinds)}
+        if name in LM_PARITY_ARCHS:
+            pb2 = dict(pb, tokens=torch.cat([pb["tokens"], nxt], dim=1))
+            logits2, _ = lmb.prefill(rmodel, rparams, pb2)
+            diff = (logits_dec[:, 0] - logits2[:, -1]).abs()
+            lim = LM_PARITY_TOL + LM_PARITY_TOL * logits2[:, -1].abs()
+            check(bool((diff <= lim).all()), f"{name}: prefill-decode "
+                  f"parity off by {float(diff.max())}")
+            row["parity_max_abs"] = float(diff.max())
+        arch_rows[name] = row
+    out["reduced_archs"] = arch_rows
+    k4_by_arch = {n: r["k4"] for n, r in arch_rows.items()}
+    parity = {n: r["parity_max_abs"] for n, r in arch_rows.items()
+              if "parity_max_abs" in r}
+    print(f"phase 18 {card}: the ten archs at reduced width through prefill "
+          f"and decode on the card, K4 launches {k4_by_arch} (0 on the "
+          f"archs without attn/eattn/xattn blocks); prefill-decode parity "
+          f"(atol = rtol = {LM_PARITY_TOL}) max abs {parity}", flush=True)
+
+    # (d) K4 at the path's shapes: the prefill, and the last decode step
+    # over the cache written so far; and the copy of that cache slice
+    rng = np.random.default_rng(18)
+    hd, nkv = cfg.hd, cfg.n_kv
+    shapes = ((b, cfg.n_heads, nkv, s, s, hd, True),
+              (b, cfg.n_heads, nkv, 1, s + gen - 1, hd, True))
+    k4_times = [k4_lm_record(rng, shape[:6], shape[6]) for shape in shapes]
+    cache = cuda_randn(rng, (b, nkv, s + gen, hd), torch.bfloat16)
+    copy_ms = cuda_ms(lambda: cache[:, :, :s + gen - 1].contiguous(), 50)
+    out["k4"] = k4_times
+    out["kv_copy_ms"] = copy_ms
+    for t in k4_times:
+        share = ("not measured" if t["share_of_bound"] is None
+                 else f"{100 * t['share_of_bound']:.1f}%")
+        print(f"phase 18 {card}: K4 at {tuple(t['shape'])} bf16 causal "
+              f"[{t['variant']}]: {t['ms']:.4f} / {t['device_ms']} ms per "
+              f"call / device ({t['timing']}), plain {t['plain_ms']:.4f} / "
+              f"{t['plain_device_ms']}, sdpa(enable_gqa) "
+              f"{t['library_ms']:.4f} / {t['library_device_ms']}, bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']} ({share} of it); "
+              f"error against the float32 plain version "
+              f"{t['rel_err_vs_float32_plain']:.3g} relative", flush=True)
+    print(f"phase 18 {card}: a decode step's copy of one layer's live cache "
+          f"({b} x {nkv} x {s + gen - 1} x {hd} bf16) {copy_ms:.4f} ms, "
+          f"x 2 (k, v) x {cfg.n_layers} layers a step; whole phase "
+          f"{time.perf_counter() - t18:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t18
+    return out
 
 
 def main(argv=None) -> int:
@@ -2386,6 +2771,18 @@ def smoke(args, pool, work: str) -> int:
              "pool_1_worker_s": pool_c_s, "pool_train_s": train_a,
              "phase_s": crash_s, "resume_main_s": resume_s,
              "launches_by_run": run_launches}
+    # ---- phase 18: the LM serve path -------------------------------------
+    lm = lm_phase(card, work, pool, backend, reset_counts, read_counts)
+    path_launches["lm_serve"] = lm["serve"]["launches"]
+    path_launches["lm_trace_replay"] = lm["trace_replay"]["launches"]
+    # every path's launches, phases 16-18 included
+    for rec in kernels:
+        rec["launches_by_path"] = by_path(rec["name"])
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["name"] == "flash_attention":
+            rec["variants"] = rec["variants"] + lm["k4"]
+    print(f"phase 18: launches by path {path_launches}; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "fig11_bicg_timeline.csv"),
@@ -2408,7 +2805,7 @@ def smoke(args, pool, work: str) -> int:
                        "fig12": fig12, "headline": headline,
                        "ipc": ipc_rows, "chain_reasons": reasons,
                        "chain_s": chain_s, "throughput": thru,
-                       "crash_safety": crash}, f,
+                       "crash_safety": crash, "lm": lm}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

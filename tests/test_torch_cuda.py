@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_arch
 from repro_torch.core import families
 from repro_torch.core.model import Predictor
 from repro_torch.core.vocab import FEATURE_BUCKETS
@@ -39,6 +40,7 @@ from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_plain,
                                              int4_variant)
 from repro_torch.kernels.lane_replay import (FAMILIES, POLICIES, ROOT_PAGES,
                                              lane_replay, lane_replay_plain)
+from repro_torch.models import builder as lm
 from repro_torch.uvm import golden as G
 from repro_torch.uvm import paper_tables, sweep
 from repro_torch.offload.serve_trace import (build_serve_trace,
@@ -406,6 +408,107 @@ def test_k4_bf16_at_the_path_shape_matches_the_float32_plain_version(
     want = flash_attention_plain(q.float(), k.float(), v.float(),
                                  causal=causal)
     assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def _bf16_qkv(device, b, h, hkv, sq, sk, d, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn((b, h, sq, d), generator=g).to(device, torch.bfloat16),
+            torch.randn((b, hkv, sk, d), generator=g).to(device,
+                                                        torch.bfloat16),
+            torch.randn((b, hkv, sk, d), generator=g).to(device,
+                                                        torch.bfloat16))
+
+
+def test_k4_at_the_llama3_prefill_shape_matches_the_float32_plain_version(
+        device):
+    """The LM zoo's prefill at llama3-8b's full width: 8 requests of 512
+    tokens, 32 query heads over 8 kv heads (GQA 4:1), head dim 128, bf16,
+    causal; against the plain version on float32 copies, at the
+    reference's bf16 tolerance."""
+    q, k, v = _bf16_qkv(device, 8, 32, 8, 512, 512, 128, 1)
+    assert flash_geometry(8 * 32, 512, 512, 128).tiling == "general"
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=True)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("index", [512, 543, 574])
+def test_k4_decode_step_over_a_sliced_cache(device, index):
+    """A decode step as the LM zoo runs it: one query at position
+    ``index`` against a (B, Hkv, 576, D) cache sliced to its first index + 1
+    keys, causal (K4's offset Sk - Sq = index), held against the
+    reference's mask over the whole padded cache (keys past index, here
+    filled with large values, get weight 0), in float32."""
+    q, ck, cv = _bf16_qkv(device, 8, 32, 8, 1, 576, 128, index)
+    ck[:, :, index + 1:] = 100.0
+    cv[:, :, index + 1:] = 100.0
+    got = flash_attention(q, ck[:, :, :index + 1].contiguous(),
+                          cv[:, :, :index + 1].contiguous(), causal=True)
+    kx = ck.float().repeat_interleave(4, dim=1)
+    vx = cv.float().repeat_interleave(4, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / 128 ** 0.5
+    mask = torch.arange(576, device=device) <= index
+    logits = logits.masked_fill(~mask, -1e30)
+    want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1), vx)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("sq,sk", [(40, 16), (1, 16), (16, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_cross_attention_matches_its_plain_version(device, sq, sk, dtype):
+    """Cross attention (``xattn``): decoder queries over encoder keys,
+    Sq != Sk, not causal."""
+    g = torch.Generator(device="cpu").manual_seed(sq * 1000 + sk)
+    q = torch.randn((2, 16, sq, 64), generator=g).to(device, dtype)
+    k = torch.randn((2, 16, sk, 64), generator=g).to(device, dtype)
+    v = torch.randn((2, 16, sk, 64), generator=g).to(device, dtype)
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float())
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "seamless-m4t-medium",
+                                  "recurrentgemma-9b"])
+def test_reduced_lm_prefill_and_decode_match_the_cpu(device, monkeypatch,
+                                                     name):
+    """A reduced arch's prefill and one decode step on the card (K4 on its
+    attn, eattn and xattn blocks; recurrentgemma's lattn on the plain
+    attention, no launch) against the same parameters on the CPU, float32
+    with TF32 off."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name).reduced()
+    model = lm.build_model(cfg)
+    params = lm.init_params(model, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, 4, cfg.d_model))).float()
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)))
+
+    def run(params, batch, nxt):
+        logits, states = lm.prefill(model, params, batch, max_len=36)
+        step, _ = lm.decode(model, params, states, nxt, 32)
+        return logits.cpu(), step.cpu()
+
+    want = run(params, batch, nxt)
+    launches = flash_attention.launches
+    got = run(params.to(device), {k: t.to(device) for k, t in batch.items()},
+              nxt.to(device))
+    torch.cuda.synchronize()
+    n = flash_attention.launches - launches
+    assert (n == 0) if name == "recurrentgemma-9b" else (n > 0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
 #: the reference's int4 test shapes, the simplified predictor's layer

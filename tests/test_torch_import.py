@@ -47,7 +47,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr[-4000:]
     # every module of the port was imported, not a vacuous package
     names, count = res.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 40
+    assert int(count) >= 76
     assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
             "repro_torch.uvm.engine", "repro_torch.uvm.backends.numpy_backend",
             "repro_torch.uvm.backends.legacy_backend",
@@ -57,7 +57,14 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.uvm.adaptive", "repro_torch.kernels.int4_matmul",
             "repro_torch.kernels.flash_attention",
             "repro_torch.uvm.faults",
-            "repro_torch.distributed.fault_tolerance"} <= set(names.split())
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.configs", "repro_torch.configs.arch",
+            "repro_torch.configs.registry", "repro_torch.configs.llama3_8b",
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.rglru", "repro_torch.models.builder",
+            "repro_torch.models.convert",
+            "repro_torch.launch.serve"} <= set(names.split())
 
 
 _FORBIDDEN = re.compile(
