@@ -19,8 +19,9 @@ zoo's serving path on the card:
 4. K2 (HLSH attention), K3 (int4 matmul) and K4 (flash attention)
    against their plain versions, at the reference's test shapes and types,
    at the predictor's shapes, at the predictor tables' shapes and at the
-   edges of K2's and K4's tilings (K2 in both tilings and both types) and
-   K3's variants;
+   edges of K2's and K4's tilings (K2 in both tilings and both types; K4's
+   tensor-core tilings, mma and split, in bf16 with k and v also as cache
+   views) and K3's variants;
 5. the main path: the sweep over the 11 paper benchmarks x {none, tree,
    learned} x {all memory, half the working set}, predictors trained and
    served on the card (the quantized simplified predictor's weight products
@@ -119,9 +120,10 @@ zoo's serving path on the card:
     legacy engine; the ten archs at reduced width through prefill and
     decode (K4 on every arch with attn/eattn/xattn blocks, none on mamba2
     and recurrentgemma; the reference's prefill-decode parity on five);
-    K4 timed at the prefill's and the last decode step's shapes beside
-    its plain version and ``scaled_dot_product_attention(...,
-    enable_gqa=True)``; then the ``kernels`` line and the result line.
+    K4 timed at the prefill's shape (the mma tiling) and the last decode
+    step's over a cache view (the split tiling) beside its plain version
+    and ``scaled_dot_product_attention(..., enable_gqa=True)``; then the
+    ``kernels`` line and the result line.
 
 Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
 the NumPy engine or the legacy loop there fails the run.  Each of the
@@ -238,6 +240,22 @@ K3_EDGE_CASES = tuple(((1000, k, n), "float32") for k, n in (
 K4_EDGE_SHAPES = ((2, 5, 5, 1, 1, 1), (2, 5, 5, 31, 31, 49),
                   (2, 5, 5, 33, 33, 64), (2, 5, 5, 129, 129, 100),
                   (2, 5, 5, 29, 29, 128), (2, 4, 2, 33, 29, 50))
+#: edges of K4's tensor-core tilings in bf16 (B, H, Hkv, Sq, Sk, D, causal,
+#: extra cache keys: k and v the first Sk keys of a longer cache, read in
+#: place): the split tiling at one key, llama3-8b's decode over its cache
+#: view, granite-20b's G = 48 over splits of several tiles, qwen3-moe's G =
+#: 16, four causal rows a head over 600 keys, 64 rows in 4 slices, cross
+#: attention; the mma tiling at a ragged 63-row tile, two tiles of 65 rows,
+#: 1,000 rows, over a cache view, and more queries than keys unmasked
+K4_TC_CASES = ((2, 4, 1, 1, 1, 64, True, 0), (8, 32, 8, 1, 575, 128, True, 1),
+               (2, 48, 1, 1, 4097, 128, True, 0),
+               (2, 32, 2, 1, 65, 64, True, 0), (2, 8, 2, 4, 600, 64, True, 0),
+               (2, 4, 4, 64, 64, 128, False, 0),
+               (2, 16, 16, 40, 200, 64, False, 0),
+               (2, 3, 1, 63, 63, 128, True, 0), (2, 4, 4, 65, 65, 64, True, 0),
+               (1, 8, 2, 1000, 1000, 64, True, 0),
+               (2, 12, 4, 100, 300, 128, True, 37),
+               (1, 2, 1, 129, 31, 64, False, 0))
 K3_PATH_SHAPES = ((4096 * 30, 12, 12), (4096 * 30, 12, 48),
                   (4096 * 30, 48, 12), (4096, 12, 20000), (4096, 12, 19999))
 #: the predictor tables' shapes at the evaluation batch of 512 windows: K4
@@ -640,6 +658,25 @@ def k4_against_plain(rng, shape, causal, dtype):
     return float((got.float() - want.float()).abs().max()), (q, k, v)
 
 
+def cache_view(rng, shape, extra):
+    """q and k, v of a (B, H, Hkv, Sq, Sk, D) shape in bf16 on the card, k
+    and v the first Sk keys of a cache of Sk + ``extra`` keys (a view, as a
+    decode step hands them to K4; contiguous where ``extra`` is 0)."""
+    import torch
+    b, h, hkv, sq, sk, d = shape
+    q = cuda_randn(rng, (b, h, sq, d), torch.bfloat16)
+    k, v = (cuda_randn(rng, (b, hkv, sk + extra, d), torch.bfloat16)[
+        :, :, :sk] for _ in range(2))
+    return q, k, v
+
+
+def k4_tiling(shape, dtype, causal) -> str:
+    """The tiling K4's wrapper picks for a (B, H, Hkv, Sq, Sk, D) shape."""
+    from repro_torch.kernels.flash_attention import flash_geometry
+    b, h, hkv, sq, sk, d = shape
+    return flash_geometry(b * h, sq, sk, d, dtype, h // hkv, causal).tiling
+
+
 def rel_err(got, want) -> float:
     """The reference's K3 measure: max |got - want| / (|want| + 1)."""
     got, want = got.float(), want.float()
@@ -680,25 +717,36 @@ def rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def k4_lm_record(rng, shape, causal):
-    """K4 at a (B, H, Hkv, Sq, Sk, D) bf16 shape of the LM path, its
-    PyTorch call (one ``scaled_dot_product_attention(..., enable_gqa=True)``
-    on the same tensors; causal only where Sq = Sk, since its causal mask
-    is aligned to the top left, and for Sq = 1 over the cache written so
-    far every key is visible) and its plain version, in turns over rotating
-    copies; its error against the plain version on float32 copies."""
+def k4_lm_record(rng, shape, causal, extra=0):
+    """K4 at a (B, H, Hkv, Sq, Sk, D) bf16 shape of the LM path (k and v the
+    first Sk keys of a cache of Sk + ``extra``, read in place, as a decode
+    step reads them), its PyTorch call (one
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` on the same
+    tensors; causal only where Sq = Sk, since its causal mask is aligned to
+    the top left, and for Sq = 1 over the cache written so far every key is
+    visible) and its plain version, in turns over rotating copies; its
+    error against the plain version on float32 copies."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
-                                                     flash_geometry)
+                                                     flash_geometry,
+                                                     split_plan)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h, hkv, sq, sk, d = shape
-    _, qkv = k4_against_plain(rng, shape, causal, torch.bfloat16)
+    qkv = cache_view(rng, shape, extra)
     err = rel_max(flash_attention(*qkv, causal=causal),
                   flash_attention_plain(*(t.float() for t in qkv),
                                         causal=causal))
     nbytes = 2 * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
-    copies = copies_of(qkv, nbytes)
+    def clone(t):
+        """A copy of ``t`` in a cache of its own of Sk + extra keys."""
+        cache = t.new_empty((b, t.shape[1], sk + extra, d))
+        cache[:, :, :sk] = t
+        return cache[:, :, :sk]
+
+    copies = [qkv] + [(qkv[0].clone(), clone(qkv[1]), clone(qkv[2]))
+                      for _ in range(max(1, math.ceil(ROTATE_BYTES / nbytes))
+                                     - 1)]
     t = timed_in_turns({
         "kernel": rotating(lambda q, k, v: flash_attention(
             q, k, v, causal=causal), copies),
@@ -715,9 +763,16 @@ def k4_lm_record(rng, shape, causal):
     by_ops = 4 * b * h * d * pairs / BF16_FLOPS * 1e3
     bound = max(by_bytes, by_ops)
     dev = t["kernel"]["device_ms"]
+    geo = flash_geometry(b * h, sq, sk, d, torch.bfloat16, h // hkv, causal)
+    variant = geo.name()
+    if geo.tiling == "split":
+        splits, split_keys, groups = split_plan(b * hkv, sk, h // hkv * sq)
+        variant += (f" ({splits} splits of {split_keys} keys, {groups} key "
+                    f"groups: {b * hkv * splits} blocks)")
     return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
-            "path": "LM serve", "rel_err_vs_float32_plain": err,
-            "variant": flash_geometry(b * h, sq, sk, d).name(),
+            "path": "LM serve", "kv_view": extra > 0,
+            "rel_err_vs_float32_plain": err,
+            "tiling": geo.tiling, "variant": variant,
             "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "ms": t["kernel"]["ms"], "device_ms": dev,
@@ -727,6 +782,50 @@ def k4_lm_record(rng, shape, causal):
             "library_device_ms": t["library"]["device_ms"],
             "share_of_bound": None if dev is None else bound / dev,
             "timing": t["kernel"]["method"]}
+
+
+def decode_profile(model, params, b, s, gen, steps=3):
+    """Where a decode step's time goes: the mean host-clock milliseconds
+    of ``steps`` decode steps (after a prefill of ``b`` x ``s`` random
+    tokens and one warm-up step, ending in a synchronize), then the same
+    steps under ``torch.profiler``: device-busy milliseconds a step (the
+    sum of its kernels' device time), kernels a step, K4's device time a
+    step, the idle share (1 - busy / host clock) and the five kernels with
+    the most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import builder as lmb
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab, (b, s))).cuda()
+    _, states = lmb.prefill(model, params, {"tokens": tokens},
+                            max_len=s + gen)
+    toks = tokens[:, -1:]
+    lmb.decode(model, params, states, toks, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lmb.decode(model, params, states, toks, s + 1 + i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            lmb.decode(model, params, states, toks, s + 1 + steps + i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    k4 = sum(e.self_device_time_total for e in dev
+             if "flash" in e.key) / 1e3 / steps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    del states
+    return {"steps": steps, "wall_ms": wall, "busy_ms": busy,
+            "kernels": sum(e.count for e in dev) / steps, "k4_ms": k4,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps)
+                    for e in top]}
 
 
 def lm_phase(card: str, work: str, pool, backend, reset_counts,
@@ -782,6 +881,14 @@ def lm_phase(card: str, work: str, pool, backend, reset_counts,
           "LM serve: logits not all finite")
     st = res.stats
     check(st["evictions"] > 0, f"LM serve: the store never evicted: {st}")
+    prof = decode_profile(model, params, b, s, gen)
+    out["decode_profile"] = prof
+    print(f"phase 18 {card}: a decode step (outside the serve, "
+          f"{prof['steps']} steps after a prefill): {prof['wall_ms']:.2f} ms "
+          f"on the host's clock, the device busy {prof['busy_ms']:.2f} ms of "
+          f"it ({prof['kernels']:.0f} kernels; K4 {prof['k4_ms']:.3f} ms; "
+          f"idle share {100 * prof['idle_share']:.1f}%); by device time "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["top"]), flush=True)
     # the same model with attention in the plain version (on float32
     # copies), teacher-forced on the K4 run's tokens: every attention call
     # also runs K4 on its inputs (comparison launches, not counted above)
@@ -976,20 +1083,19 @@ def lm_phase(card: str, work: str, pool, backend, reset_counts,
           f"(atol = rtol = {LM_PARITY_TOL}) max abs {parity}", flush=True)
 
     # (d) K4 at the path's shapes: the prefill, and the last decode step
-    # over the cache written so far; and the copy of that cache slice
+    # over the cache written so far, a view of the cache of s + gen keys
     rng = np.random.default_rng(18)
     hd, nkv = cfg.hd, cfg.n_kv
-    shapes = ((b, cfg.n_heads, nkv, s, s, hd, True),
-              (b, cfg.n_heads, nkv, 1, s + gen - 1, hd, True))
-    k4_times = [k4_lm_record(rng, shape[:6], shape[6]) for shape in shapes]
-    cache = cuda_randn(rng, (b, nkv, s + gen, hd), torch.bfloat16)
-    copy_ms = cuda_ms(lambda: cache[:, :, :s + gen - 1].contiguous(), 50)
+    k4_times = [
+        k4_lm_record(rng, (b, cfg.n_heads, nkv, s, s, hd), True),
+        k4_lm_record(rng, (b, cfg.n_heads, nkv, 1, s + gen - 1, hd), True,
+                     extra=1)]
     out["k4"] = k4_times
-    out["kv_copy_ms"] = copy_ms
     for t in k4_times:
         share = ("not measured" if t["share_of_bound"] is None
                  else f"{100 * t['share_of_bound']:.1f}%")
-        print(f"phase 18 {card}: K4 at {tuple(t['shape'])} bf16 causal "
+        print(f"phase 18 {card}: K4 at {tuple(t['shape'])} bf16 causal"
+              f"{' over a cache view' if t['kv_view'] else ''} "
               f"[{t['variant']}]: {t['ms']:.4f} / {t['device_ms']} ms per "
               f"call / device ({t['timing']}), plain {t['plain_ms']:.4f} / "
               f"{t['plain_device_ms']}, sdpa(enable_gqa) "
@@ -997,10 +1103,8 @@ def lm_phase(card: str, work: str, pool, backend, reset_counts,
               f"{t['bound_ms']:.4f} by {t['bound_by']} ({share} of it); "
               f"error against the float32 plain version "
               f"{t['rel_err_vs_float32_plain']:.3g} relative", flush=True)
-    print(f"phase 18 {card}: a decode step's copy of one layer's live cache "
-          f"({b} x {nkv} x {s + gen - 1} x {hd} bf16) {copy_ms:.4f} ms, "
-          f"x 2 (k, v) x {cfg.n_layers} layers a step; whole phase "
-          f"{time.perf_counter() - t18:.1f} s", flush=True)
+    print(f"phase 18 {card}: whole phase {time.perf_counter() - t18:.1f} s",
+          flush=True)
     out["phase_s"] = time.perf_counter() - t18
     return out
 
@@ -1039,7 +1143,9 @@ def smoke(args, pool, work: str) -> int:
     from repro_torch.core.vocab import DeltaVocab
     from repro_torch.kernels import LAUNCH_LOG_ENV, build, read_launch_log
     from repro_torch.kernels import lane_replay as k1
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (TILINGS, WARP_HEADS,
+                                                     FlashGeometry,
+                                                     flash_attention,
                                                      flash_attention_plain,
                                                      flash_geometry)
     from repro_torch.kernels.hlsh_attention import (hlsh_attention,
@@ -1268,6 +1374,26 @@ def smoke(args, pool, work: str) -> int:
         check(err <= K4_ATOL["bfloat16"], f"K4 bf16 {shape}: max error {err} "
               "from the float32 plain version")
         k4_err["bfloat16"] = max(k4_err["bfloat16"], err)
+    # the tensor-core tilings' edges in bf16, against the float32 plain
+    # version on the same inputs
+    k4_tilings = {}
+    for *shape, causal, extra in K4_TC_CASES:
+        qkv = cache_view(rng, shape, extra)
+        n0 = flash_attention.launches
+        got = flash_attention(*qkv, causal=causal)
+        err = float((got.float() - flash_attention_plain(
+            *(t.float() for t in qkv), causal=causal)).abs().max())
+        tiling = k4_tiling(shape, torch.bfloat16, causal)
+        check(err <= K4_ATOL["bfloat16"] and flash_attention.launches
+              == n0 + 1, f"K4 bf16 {tuple(shape)} causal={causal} [{tiling}]"
+              f": max error {err} from the float32 plain version")
+        k4_err["bfloat16"] = max(k4_err["bfloat16"], err)
+        k4_tilings.setdefault(tiling, []).append(tuple(shape))
+    for shape, causal, dt in k4_cases:
+        k4_tilings.setdefault(k4_tiling(shape, dt, causal), []).append(shape)
+    check(sorted(k4_tilings) == sorted(TILINGS) and all(
+        k4_tilings[t] for t in ("mma", "split")),
+          f"K4's cases reach the tilings {sorted(k4_tilings)} only")
     # bf16 at the path's shape, held against the plain version on float32
     # copies of the same inputs: the bf16 plain version rounds its logits
     # and probabilities to bf16 where K4 keeps them in float32, so at S = 30
@@ -1343,8 +1469,10 @@ def smoke(args, pool, work: str) -> int:
     print(f"phase 4: K2 matched its plain version on {len(K2_CASES)} cases, "
           f"max error {k2_err} (limits {K2_ATOL}; bf16 from the bf16 plain "
           f"version {k2_bf16_plain}; by tiling and type {k2_geos}); K4 on "
-          f"{len(k4_cases)} cases, max error "
-          f"{k4_err} (limits {K4_ATOL}; bf16 at the path's shape, from "
+          f"{len(k4_cases) + len(K4_TC_CASES)} cases, max error "
+          f"{k4_err} (limits {K4_ATOL}; the tensor-core tilings' edges "
+          f"{ {t: k4_tilings[t] for t in ('mma', 'split')} }; bf16 at the "
+          f"path's shape, from "
           f"the float32 plain version and from the bf16 one: "
           + ", ".join(f"{c} {e['vs_float32_plain']:.3g} / "
                       f"{e['vs_plain']:.3g}" for c, e in k4_bf16_path.items())
@@ -2441,6 +2569,9 @@ def smoke(args, pool, work: str) -> int:
          "launches_by_path": by_path("flash_attention"),
          "max_abs_err": max(k4_err.values()), "max_abs_err_by_dtype": k4_err,
          "bf16_path_shape_err": k4_bf16_path, **k4_main,
+         "tilings": {t: FlashGeometry(t, WARP_HEADS if t == "warp" else 1)
+                     .name() for t in TILINGS},
+         "tilings_checked": {t: len(c) for t, c in k4_tilings.items()},
          "variants": k4_tables},
     ]
 

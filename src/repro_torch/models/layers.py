@@ -5,30 +5,35 @@ Counterpart of the reference's ``repro.models.layers``, with the same cast
 order: ``rmsnorm`` takes the variance in float32 and casts ``rsqrt`` to the
 input's type; ``rope`` takes its angles in float32 and casts cos/sin.
 
-Attention goes through K4 (``kernels.flash_attention.flash_attention``),
-chosen by block kind in code, never by catching a kernel error:
+Attention is routed by mode, in code, never by catching a kernel error:
 
-* ``attn`` and ``eattn`` (prefill and training) and ``xattn``: K4 over the
-  block's keys, ``causal`` as the reference's mask gives it (``attn``
-  causal, ``eattn`` and ``xattn`` not).
-* Decode (``attn`` with a cache): K4 over the cache sliced to the keys
-  written so far, ``[0, index + S)``, with ``causal=True``.  K4's causal
-  offset is ``Sk - Sq``, here ``index``: the reference's mask
-  ``qpos >= kpos`` over the padded cache, whose masked keys get weight
-  exactly 0.
+* Training (autograd on, and q, k or v requires a gradient): every block
+  takes :func:`attend_plain`, the reference's differentiable ``_attend``,
+  with the ``f32_logits`` knob honoured.  K4 has no backward (neither has
+  the reference's flash kernel), and the reference's models train through
+  ``_attend``; the port's predictor follows the same rule.
+* Otherwise (``prefill`` and ``decode`` run under ``torch.no_grad``):
+  ``attn``, ``eattn`` and ``xattn`` blocks take K4
+  (``kernels.flash_attention.flash_attention``) over the block's keys,
+  ``causal`` as the reference's mask gives it (``attn`` causal, ``eattn``
+  and ``xattn`` not).  A decode step (``attn`` with a cache) hands K4 the
+  cache's view ``[0, index + S)``, the keys written so far, with no copy,
+  and ``causal=True``: K4's causal offset is ``Sk - Sq``, here ``index``,
+  the reference's mask ``qpos >= kpos`` over the padded cache, whose
+  masked keys get weight exactly 0.
 * ``lattn`` (sliding window; only ``recurrentgemma-9b``, whose head dim of
-  256 exceeds K4's ``MAX_D`` of 128): :func:`attend_plain`, the
-  reference's ``_attend`` in PyTorch, over the same sliced cache.
+  256 exceeds K4's ``MAX_D`` of 128) always takes :func:`attend_plain`,
+  over the same cache view.
 
 ``attn_f32_logits=False`` (the reference's tuning knob: logits in the
-inputs' type) is honoured by :func:`attend_plain` only.  K4 always takes its
-logits and softmax in float32, so on K4's blocks the knob changes nothing.
+inputs' type) changes nothing on K4's blocks: K4 always takes its logits
+and softmax in float32.
 
 A K4 launch that fails raises.  The port keeps attention caches head-major,
-``(B, Hkv, S_max, D)``, the layout K4 reads, and writes decode steps into
-them in place (the reference returns updated copies); K4 gets a contiguous
-copy of the cache's live keys.  The reference's ``constrain`` (sharding
-hints, a no-op without a mesh) has no counterpart here.
+``(B, Hkv, S_max, D)``, the layout K4 reads (rows dense, batch and head
+strides free), and writes decode steps into them in place (the reference
+returns updated copies).  The reference's ``constrain`` (sharding hints, a
+no-op without a mesh) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -86,6 +91,16 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bkgqs,bksd->bkgqd", probs, v).reshape(b, h, sq, d)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, f32_logits: bool) -> torch.Tensor:
+    """An ``attn``, ``eattn`` or ``xattn`` block's attention: differentiable
+    while training, else K4."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return attend_plain(q, k, v, causal=causal, f32_logits=f32_logits)
+    return flash_attention(q, k, v, causal=causal)
+
+
 def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, H, D) -> (B, S, H, D)."""
     return (h @ w.reshape(w.shape[0], -1)).reshape(
@@ -115,7 +130,8 @@ def attention_block(x: torch.Tensor, p: Dict, *, n_heads: int, n_kv: int,
       encoder's output).
 
     ``window`` is set only for ``lattn`` blocks, which take
-    :func:`attend_plain`; every other block runs K4.
+    :func:`attend_plain`; every other block runs K4 unless it is training
+    (:func:`_attend`).
     """
     b, s, _ = x.shape
     h = rmsnorm(x, p["ln"])
@@ -139,17 +155,18 @@ def attention_block(x: torch.Tensor, p: Dict, *, n_heads: int, n_kv: int,
             ck[:, :, idx:idx + s] = k
             cv[:, :, idx:idx + s] = v
             new_cache = (ck, cv)
-            # the keys written so far; K4's causal offset Sk - Sq is idx
-            k = ck[:, :, :idx + s].contiguous()
-            v = cv[:, :, :idx + s].contiguous()
+            # a view of the keys written so far; K4's causal offset Sk - Sq
+            # is idx
+            k = ck[:, :, :idx + s]
+            v = cv[:, :, :idx + s]
         if window is not None:
             out = attend_plain(q, k, v, causal=causal, window=window,
                                f32_logits=f32_logits)
         else:
-            out = flash_attention(q, k, v, causal=causal)
+            out = _attend(q, k, v, causal=causal, f32_logits=f32_logits)
     else:
         k, v = cross_kv
-        out = flash_attention(_heads(q), k, v, causal=False)
+        out = _attend(_heads(q), k, v, causal=False, f32_logits=f32_logits)
         new_cache = None
     y = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].reshape(
         -1, p["wo"].shape[-1])

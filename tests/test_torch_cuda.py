@@ -370,6 +370,26 @@ K4_CASES = [(shape, dtype) for shape in (
     ((4096, 4, 4, 30, 30, 50), torch.float32)]
 
 
+def _k4_tiling(shape, dtype, causal):
+    """The tiling K4 must take: bf16 at D = 64 or 128 (no mask, or a causal
+    one with Sk >= Sq) on the tensor cores, split where G x Sq <= 64, mma
+    where Sq >= 16; else a warp per head where S <= 32 and D <= 64, else
+    general."""
+    b, h, hkv, sq, sk, d = shape
+    if (dtype == torch.bfloat16 and d in (64, 128)
+            and not (causal and sq > sk)):
+        if h // hkv * sq <= 64:
+            return "split"
+        if sq >= 16:
+            return "mma"
+    return "warp" if max(sq, sk) <= 32 and d <= 64 else "general"
+
+
+def _k4_geometry(shape, dtype, causal):
+    b, h, hkv, sq, sk, d = shape
+    return flash_geometry(b * h, sq, sk, d, dtype, h // hkv, causal)
+
+
 @pytest.mark.parametrize("shape,dtype", K4_CASES)
 @pytest.mark.parametrize("causal", [False, True])
 def test_k4_matches_its_plain_version(device, shape, dtype, causal):
@@ -378,9 +398,8 @@ def test_k4_matches_its_plain_version(device, shape, dtype, causal):
     q = torch.randn((b, h, sq, d), generator=g).to(device, dtype)
     k = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
     v = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
-    warp = max(sq, sk) <= 32 and d <= 64
-    assert flash_geometry(b * h, sq, sk, d).tiling == ("warp" if warp
-                                                       else "general")
+    assert (_k4_geometry(shape, dtype, causal).tiling
+            == _k4_tiling(shape, dtype, causal))
     launches = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -426,7 +445,8 @@ def test_k4_at_the_llama3_prefill_shape_matches_the_float32_plain_version(
     causal; against the plain version on float32 copies, at the
     reference's bf16 tolerance."""
     q, k, v = _bf16_qkv(device, 8, 32, 8, 512, 512, 128, 1)
-    assert flash_geometry(8 * 32, 512, 512, 128).tiling == "general"
+    assert flash_geometry(8 * 32, 512, 512, 128, torch.bfloat16, 4,
+                          True).tiling == "mma"
     launches = flash_attention.launches
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -439,15 +459,20 @@ def test_k4_at_the_llama3_prefill_shape_matches_the_float32_plain_version(
 @pytest.mark.parametrize("index", [512, 543, 574])
 def test_k4_decode_step_over_a_sliced_cache(device, index):
     """A decode step as the LM zoo runs it: one query at position
-    ``index`` against a (B, Hkv, 576, D) cache sliced to its first index + 1
-    keys, causal (K4's offset Sk - Sq = index), held against the
-    reference's mask over the whole padded cache (keys past index, here
-    filled with large values, get weight 0), in float32."""
+    ``index`` against a (B, Hkv, 576, D) cache viewed (no copy) as its
+    first index + 1 keys, causal (K4's offset Sk - Sq = index), in the
+    split tiling, held against the reference's mask over the whole padded
+    cache (keys past index, here filled with large values, get weight 0),
+    in float32."""
     q, ck, cv = _bf16_qkv(device, 8, 32, 8, 1, 576, 128, index)
     ck[:, :, index + 1:] = 100.0
     cv[:, :, index + 1:] = 100.0
-    got = flash_attention(q, ck[:, :, :index + 1].contiguous(),
-                          cv[:, :, :index + 1].contiguous(), causal=True)
+    assert flash_geometry(8 * 32, 1, index + 1, 128, torch.bfloat16, 4,
+                          True).tiling == "split"
+    launches = flash_attention.launches
+    got = flash_attention(q, ck[:, :, :index + 1], cv[:, :, :index + 1],
+                          causal=True)
+    assert flash_attention.launches == launches + 1
     kx = ck.float().repeat_interleave(4, dim=1)
     vx = cv.float().repeat_interleave(4, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / 128 ** 0.5
@@ -474,6 +499,140 @@ def test_k4_cross_attention_matches_its_plain_version(device, sq, sk, dtype):
     want = flash_attention_plain(q.float(), k.float(), v.float())
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     assert (got.float() - want).abs().max().item() <= tol
+
+
+def _k4_tc_check(device, shape, causal, seed, view=0):
+    """K4 in bf16 once on random inputs in the tiling ``_k4_tiling`` names
+    (k and v, with ``view`` > 0, the first Sk keys of a cache of Sk + view),
+    against the plain version on float32 copies at the reference's bf16
+    tolerance."""
+    b, h, hkv, sq, sk, d = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=g).to(device, torch.bfloat16)
+    ck, cv = (torch.randn((b, hkv, sk + view, d), generator=g).to(
+        device, torch.bfloat16) for _ in range(2))
+    k, v = ck[:, :, :sk], cv[:, :, :sk]
+    assert k.is_contiguous() == (view == 0)
+    tiling = _k4_tiling(shape, torch.bfloat16, causal)
+    assert _k4_geometry(shape, torch.bfloat16, causal).tiling == tiling
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    assert (got.float() - want).abs().max().item() <= 2e-2, tiling
+    return tiling
+
+
+#: GQA groups of the full-width archs with K4 blocks (1: smollm, seamless;
+#: 3: smollm-135m's 9/3; 4: llama3-8b; 16: qwen3-moe; 48: granite-20b)
+K4_TC_GROUPS = (1, 3, 4, 16, 48)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", K4_TC_GROUPS)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 512, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_tensor_core_tilings_self_attention(device, d, group, s, causal):
+    """Sq = Sk across the split (G x Sq <= 64) and mma tilings' edges: a
+    tile of 64 query rows or keys, one past it, and many."""
+    b = 2 if group * s <= 4096 else 1
+    _k4_tc_check(device, (b, group, 1, s, s, d), causal, s * group + d)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", K4_TC_GROUPS)
+@pytest.mark.parametrize("sk", [1, 2, 63, 64, 65, 575, 4097])
+def test_k4_split_tiling_decode_step(device, d, group, sk):
+    """A decode step (Sq = 1, causal) over key counts around the 64-key
+    tiles, llama3's 575 and past 4,096 (splits of several tiles)."""
+    assert _k4_tc_check(device, (2, 2 * group, 2, 1, sk, d), True,
+                        sk + group + d) == "split"
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", K4_TC_GROUPS)
+def test_k4_four_queries_over_600_keys(device, d, group):
+    """Sq = 4 over Sk = 600, causal: rows with four different last keys in
+    one split block (G x 4 <= 64), or off the tensor cores (G = 48)."""
+    _k4_tc_check(device, (2, 2 * group, 2, 4, 600, d), True, 600 + group)
+
+
+@pytest.mark.parametrize("sq,sk", [(40, 16), (16, 200), (100, 7), (300, 90),
+                                   (1, 1500)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+def test_k4_tensor_core_cross_attention(device, sq, sk, d, group):
+    """Cross attention in bf16: Sq != Sk, no mask, more queries than keys
+    too."""
+    _k4_tc_check(device, (2, 4 * group, 4, sq, sk, d), False,
+                 sq + sk + d + group)
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 8, 1, 575, 128),
+                                   (2, 16, 1, 4, 333, 64),
+                                   (2, 12, 4, 100, 300, 128),
+                                   (1, 8, 8, 64, 1000, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_tensor_core_tilings_read_a_strided_cache_view(device, shape,
+                                                          causal):
+    """k and v as the first Sk keys of a longer cache (heads and batches
+    strided, rows dense), read in place by both tilings."""
+    _k4_tc_check(device, shape, causal, sum(shape), view=37)
+
+
+def test_k4_rejects_an_unaligned_cache_on_the_tensor_cores(device):
+    """The tensor-core tilings copy 16 bytes at a time: a k that does not
+    start on 16 bytes raises, and nothing launches."""
+    q, k, v = _bf16_qkv(device, 2, 8, 2, 1, 600, 64, 3)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=device)
+    shifted = shifted[1:].view(k.shape)
+    shifted.copy_(k)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, shifted, v, causal=True)
+    assert flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "seamless-m4t-medium"])
+def test_reduced_lm_train_loss_gradients_match_the_cpu(device, monkeypatch,
+                                                       name):
+    """``train_loss(...).backward()`` of a reduced arch on the card (its
+    attention on the differentiable path, never on K4): every parameter
+    gets a gradient, equal to the CPU's within 1e-3 of each gradient's
+    largest entry (float32, TF32 off; sums in other orders: float32
+    rounding alone moves seamless's gradients by up to 1.7e-4 of their
+    largest entry against a float64 run, so two float32 runs may differ by
+    twice that; a missing path is off by order 1)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name).reduced()
+    model = lm.build_model(cfg)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, 4, cfg.d_model))).float()
+
+    def grads(device_):
+        params = lm.init_params(model, torch.Generator().manual_seed(2))
+        params = params.to(device_)
+        loss, _ = lm.train_loss(model, params,
+                                {k: t.to(device_) for k, t in batch.items()})
+        loss.backward()
+        return {n: p.grad for n, p in params.named_parameters()}
+
+    want = grads("cpu")
+    launches = flash_attention.launches
+    got = grads(device)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches
+    assert sorted(got) == sorted(want)
+    assert not [n for n, g in got.items() if g is None]
+    for n, g in got.items():
+        scale = want[n].abs().max().item()
+        assert scale > 0, n
+        assert (g.cpu() - want[n]).abs().max().item() <= 1e-3 * scale, n
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "seamless-m4t-medium",
@@ -658,9 +817,8 @@ def _k4_check(device, shape, dtype, causal, seed, float32_plain=False):
     q = torch.randn((b, h, sq, d), generator=g).to(device, dtype)
     k = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
     v = torch.randn((b, hkv, sk, d), generator=g).to(device, dtype)
-    warp = max(sq, sk) <= 32 and d <= 64
-    assert flash_geometry(b * h, sq, sk, d).tiling == ("warp" if warp
-                                                       else "general")
+    assert (_k4_geometry(shape, dtype, causal).tiling
+            == _k4_tiling(shape, dtype, causal))
     launches = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()

@@ -21,8 +21,10 @@ from repro_torch.core.quantize import pack_int4_like_fake_quant
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import hlsh_attention as k2
-from repro_torch.kernels.flash_attention import (WARP_HEADS, WARP_MAX_D,
-                                                 WARP_ROWS, flash_geometry)
+from repro_torch.kernels.flash_attention import (
+    MMA_KEYS, MMA_MIN_SQ, MMA_ROWS, SPLIT_BLOCKS, WARP_HEADS, WARP_MAX_D,
+    WARP_ROWS, flash_attention, flash_attention_plain, flash_geometry,
+    split_plan)
 from repro_torch.kernels.lane_replay import (BLK_PAGES, ROOT_PAGES,
                                              check_quota_boundaries,
                                              lane_replay)
@@ -257,6 +259,139 @@ def test_flash_geometry_fits_the_kernel(s, d):
     assert flash_geometry(10, s, s, d) == (("warp", WARP_HEADS) if fits
                                            else ("general", 1))
     assert flash_geometry(1, s, s, d).heads == 1
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,group,causal,want,dtype", [
+    # llama3-8b's serve path: prefill of 8 x 512 tokens and a decode step,
+    # 32 query heads over 8 kv heads of 128
+    (256, 512, 512, 128, 4, True, "mma", BF16),
+    (256, 1, 575, 128, 4, True, "split", BF16),
+    # qwen3-moe (G = 16, D = 64) and granite-20b (G = 48, D = 128) decode
+    (128, 1, 100, 64, 16, True, "split", BF16),
+    (96, 1, 100, 128, 48, True, "split", BF16),
+    # cross attention (Sq != Sk, no mask) and the edges of Sq x G <= 64
+    (32, 40, 16, 64, 1, False, "split", BF16),
+    (32, 64, 16, 64, 1, False, "split", BF16),
+    (32, 65, 16, 64, 1, False, "mma", BF16),
+    (32, 16, 1000, 128, 4, True, "split", BF16),
+    (32, 17, 1000, 128, 4, True, "mma", BF16),
+    (96, 2, 600, 64, 48, True, "general", BF16),    # Sq x G > 64, Sq < 16
+    (96, 16, 600, 64, 48, True, "mma", BF16),
+    # Sq > Sk under the causal mask stays off the tensor cores
+    (32, 129, 31, 64, 2, True, "general", BF16),
+    (32, 129, 31, 64, 2, False, "mma", BF16),
+    (32, 30, 29, 64, 1, True, "warp", BF16),
+    (32, 30, 29, 64, 1, False, "split", BF16),
+    # other head dims and float32 keep the warp and general tilings
+    (32, 512, 512, 96, 4, True, "general", BF16),
+    (32, 512, 512, 128, 4, True, "general", torch.float32),
+    (32, 30, 30, 50, 1, False, "warp", BF16),
+])
+def test_flash_geometry_picks_the_tensor_core_tilings(bh, sq, sk, d, group,
+                                                      causal, want, dtype):
+    assert flash_geometry(bh, sq, sk, d, dtype, group, causal).tiling == want
+
+
+@pytest.mark.parametrize("d", (32, 64, 65, 128))
+def test_flash_geometry_tensor_core_rule(d):
+    """bf16 at D = 64 or 128 with no mask, or a causal one over as many
+    keys as queries: the split tiling where a kv head's rows fit one block
+    (G x Sq <= 64), else the mma tiling where Sq fills a 16-row slice;
+    float32 and other head dims never take the tensor-core tilings."""
+    for sq in (1, 15, 16, 64, 65, 1000):
+        for group in (1, 3, 4, 16, 48):
+            for causal in (False, True):
+                sk = max(sq, 30)
+                geo = flash_geometry(8 * group, sq, sk, d, BF16, group,
+                                     causal)
+                want = None
+                if d in (64, 128):
+                    want = ("split" if group * sq <= MMA_ROWS
+                            else "mma" if sq >= MMA_MIN_SQ else None)
+                if want is None:
+                    assert geo == flash_geometry(8 * group, sq, sk, d)
+                    assert geo.tiling in ("warp", "general")
+                else:
+                    assert geo == (want, 1)
+                assert flash_geometry(8 * group, sq, sk, d, torch.float32,
+                                      group, causal).tiling in ("warp",
+                                                                "general")
+                assert flash_geometry(8 * group, sq + sk, sk, d, BF16,
+                                      group, True).tiling in ("warp",
+                                                              "general")
+
+
+@pytest.mark.parametrize("pairs,sk,rows,want", [
+    (64, 575, 4, (9, 64, 4)),          # llama3-8b's last decode step
+    (64, 512, 4, (8, 64, 4)),
+    (64, 4097, 4, (9, 512, 4)),        # 65 tiles in 9 splits of 8
+    (8, 100, 16, (2, 64, 4)),          # qwen3-moe at B = 1
+    (2, 100, 48, (2, 64, 1)),          # granite-20b: 3 row slices
+    (1, 1, 1, (1, 64, 4)),
+    (1, 65, 17, (2, 64, 2)),
+    (528, 4097, 64, (1, 4160, 1)),     # the card already full: one split
+])
+def test_split_plan(pairs, sk, rows, want):
+    """Splits of whole 64-key tiles until pairs x splits reaches
+    SPLIT_BLOCKS (no empty split), and 4 / (16-row slices) key groups."""
+    splits, split_keys, groups = split_plan(pairs, sk, rows)
+    assert (splits, split_keys, groups) == want
+    assert split_keys % MMA_KEYS == 0
+    assert (splits - 1) * split_keys < sk <= splits * split_keys
+    assert pairs * splits >= min(SPLIT_BLOCKS, pairs * -(-sk // MMA_KEYS))
+    assert groups * -(-rows // 16) <= 4
+
+
+def _qkv(rng, b, h, hkv, sq, sk, d):
+    q = torch.tensor(rng.normal(size=(b, h, sq, d)), dtype=torch.float32)
+    return q, *(torch.tensor(rng.normal(size=(b, hkv, sk, d)),
+                             dtype=torch.float32) for _ in range(2))
+
+
+@pytest.mark.parametrize("causal", (False, True))
+def test_flash_attention_takes_a_strided_cache_view(causal):
+    """k and v as a decode step hands them over, the first index + 1 keys of
+    a (B, Hkv, S_max, D) cache (dense rows, strided heads and batches): the
+    wrapper accepts the view, and the plain version gives the same result
+    on it as on its contiguous copy."""
+    rng = np.random.default_rng(5)
+    q, ck, cv = _qkv(rng, 2, 8, 2, 1, 40, 16)
+    k, v = ck[:, :, :23], cv[:, :, :23]
+    assert not k.is_contiguous() and k.stride() == (2 * 40 * 16, 40 * 16,
+                                                    16, 1)
+    got = flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, flash_attention_plain(
+        q, k.contiguous(), v.contiguous(), causal=causal))
+    assert torch.equal(flash_attention_plain(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("bad", ["k_cols", "v_rows", "k_transposed",
+                                 "q_view", "v_shape", "k_dtype"])
+def test_flash_attention_rejects_what_the_kernel_cannot_read(bad):
+    """Anything but dense last two dims in k or v, a q that is not
+    contiguous, or k/v of another shape or type than q's raises, on every
+    device (here on the CPU, before the plain version)."""
+    rng = np.random.default_rng(6)
+    q, ck, cv = _qkv(rng, 2, 4, 2, 3, 24, 8)
+    k, v = ck[:, :, :20], cv[:, :, :20]
+    flash_attention(q, k, v)                              # accepted
+    if bad == "k_cols":
+        k = torch.cat([ck, ck], dim=3)[:, :, :20, ::2]
+    elif bad == "v_rows":
+        v = torch.cat([cv, cv], dim=2)[:, :, ::2][:, :, :20]
+    elif bad == "k_transposed":
+        k = ck[:, :, :20].transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "q_view":
+        q = torch.cat([q, q], dim=2)[:, :, ::2]
+    elif bad == "v_shape":
+        v = cv[:, :, :19]
+    else:
+        k = k.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("b,n,d,dtype,want", [

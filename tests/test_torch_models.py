@@ -142,15 +142,19 @@ def _port_model(name, seed):
 
 @pytest.mark.parametrize("name", list_archs())
 def test_train_loss_backward_gives_finite_gradients(name):
-    """The reference's ``test_arch_smoke``: a finite loss, and gradients
-    through every parameter that are finite and not all zero."""
+    """The reference's ``test_arch_smoke``: a finite loss, a gradient on
+    every trainable parameter (attention included: training never goes
+    through K4, which has no backward), finite and not all zero."""
     cfg, model, params = _port_model(name, 0)
     batch = _port_batch(_inputs(cfg, np.random.default_rng(0)))
     loss, _ = PB.train_loss(model, params, batch)
     assert loss.shape == () and torch.isfinite(loss)
     loss.backward()
+    missing = [n for n, p in params.named_parameters()
+               if p.requires_grad and p.grad is None]
+    assert not missing, (name, missing)
     gn = sum(float(p.grad.square().sum()) for p in params.parameters()
-             if p.grad is not None)
+             if p.requires_grad)
     assert np.isfinite(gn) and gn > 0, name
 
 
