@@ -6,7 +6,7 @@ learned-prefetch sweep, the paper's tree-vs-learned tables, the
 oversubscription matrix, the serving matrix, the multi-tenant matrix, the
 predictor-family smoke, a full-width Transformer-family sweep, the
 paper's predictor tables, the backend chain, crash safety and the LM
-zoo's serving path on the card:
+zoo's serving and training paths on the card:
 
 1. the device, its power limit, and the kernel build;
 2. K1 (multi-lane replay) against the legacy engine at full benchmark
@@ -122,14 +122,28 @@ zoo's serving path on the card:
     and recurrentgemma; the reference's prefill-decode parity on five);
     K4 timed at the prefill's shape (the mma tiling) and the last decode
     step's over a cache view (the split tiling) beside its plain version
-    and ``scaled_dot_product_attention(..., enable_gqa=True)``; then the
-    ``kernels`` line and the result line.
+    and ``scaled_dot_product_attention(..., enable_gqa=True)``;
+19. the LM training path (``repro_torch.launch.train``): smollm-360m at
+    full width (32 layers, d_model 960, 15/5 heads of 64, d_ff 2560,
+    vocabulary 49,152, tied embeddings, bf16 at init, remat on), weights
+    drawn on the card from seed 0, on ``TokenPipeline`` batches of 8 x
+    2,048 tokens: (a) 12 steps, ``save_async`` every 10; (b) a fresh run
+    resumed from (a)'s step-10 checkpoint, its first loss (a)'s at step 10
+    to 1e-6 relative, the pipeline at step 10; (c) 3 steps under each of
+    ``int8`` and ``topk``.  Every run's losses are finite, its parameters
+    float32 after its first step and its moments and residuals after its
+    second (the reference's types), and it launches none of K1-K4 (training
+    attention is the plain version); step ms (step 0 apart), tokens/s,
+    model FLOP/s against the float32 peak, peak memory, the loss curve,
+    the compressors' ms a step and the checkpoint's times are printed;
+    one more step of (a) profiled (host clock, device-busy time, idle
+    share, kernels); then the ``kernels`` line and the result line.
 
 Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
 the NumPy engine or the legacy loop there fails the run.  Each of the
-twelve driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17, 18's serve and
-18's trace replay) zeroes the launch counters just before it and reads
-them just after (phase 17's kernels run in its subprocesses, which log
+thirteen driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17, 18's serve,
+18's trace replay and 19) zeroes the launch counters just before it and
+reads them just after (phase 17's kernels run in its subprocesses, which log
 their counts).  The legacy
 engine's replays and the plain versions run in a pool of worker processes
 on the host.
@@ -314,6 +328,22 @@ LM_PARITY_B, LM_PARITY_S, LM_PARITY_TOL = 2, 32, 2e-2
 #: of the trace's working set
 LM_REPLAY_PREFETCHERS = ("none", "tree")
 LM_REPLAY_RATIOS = (1.0, 0.5)
+#: phase 19, the LM training path: smollm-360m at full width (its config:
+#: 32 layers, d_model 960, 15/5 heads of 64, d_ff 2560, vocabulary 49,152,
+#: tied embeddings, bf16 at init, remat on), weights drawn on the card from
+#: seed 0, trained by repro_torch.launch.train on TokenPipeline batches of
+#: 8 x 2,048 tokens (SmolLM's context length) with AdamW(weight_decay=0.1,
+#: clip_norm=1.0) and linear_warmup_cosine(3e-4, 10, steps): (a) 12 steps
+#: with save_async every 10, (b) a fresh run resumed from (a)'s step-10
+#: checkpoint to step 12, (c) 3 steps under each gradient compressor; the
+#: step counts keep the whole run under 1,100 s of its 1,200
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_COMPRESS_STEPS = 12, 10, 3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
+#: the resumed run's first loss against (a)'s at step 10: the same
+#: parameters (restored bit for bit) and the same batch on the same card
+TRAIN_RESUME_TOL = 1e-6
 #: bytes that timed calls touch before one touches the same memory again:
 #: four times the H100's 50 MB L2, so each call reads and writes HBM
 ROTATE_BYTES = 200e6
@@ -1106,6 +1136,224 @@ def lm_phase(card: str, work: str, pool, backend, reset_counts,
     print(f"phase 18 {card}: whole phase {time.perf_counter() - t18:.1f} s",
           flush=True)
     out["phase_s"] = time.perf_counter() - t18
+    return out
+
+
+def train_profile(res, tc) -> dict:
+    """Where a training step's time goes: one more step of a finished
+    :func:`repro_torch.launch.train.train` run (its parameters and
+    optimizer state, the pipeline's next batch) under ``torch.profiler``,
+    ending in a synchronize: the host-clock milliseconds, the device-busy
+    milliseconds (the sum of its kernels' device time), the kernels, the
+    idle share (1 - busy / host clock) and the six kernels with the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import build_model
+    from repro_torch.optimizer import AdamW, linear_warmup_cosine
+    model = build_model(get_arch(res.arch))
+    step_fn = lm_train.make_train_step(
+        model, AdamW(weight_decay=0.1, clip_norm=1.0),
+        linear_warmup_cosine(tc.lr, tc.warmup, tc.steps), None)
+    pipe = TokenPipeline(vocab=model.cfg.vocab, seq_len=TRAIN_SEQ,
+                         batch_size=TRAIN_BATCH)
+    pipe.restore(res.pipeline_state)
+    batch = {"tokens": torch.from_numpy(
+        pipe.next_batch()["tokens"]).long().cuda()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(res.params, res.opt_state, None, batch, tc.steps - 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "kernels": sum(e.count for e in dev),
+            "idle_share": max(0.0, 1 - busy / wall),
+            "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def train_phase(card: str, work: str, reset_counts, read_counts) -> dict:
+    """Phase 19, the LM training path (``repro_torch.launch.train``):
+    smollm-360m at full width, (a) 12 steps with a checkpoint written by
+    ``save_async`` at step 10, (b) a fresh ``train`` resumed from it, (c) 3
+    steps under each of ``int8`` and ``topk``.  Returns the phase's
+    records."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as lm_train
+    from repro_torch.optimizer import compress_with_error_feedback
+
+    t19 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.remat and cfg.tie_embeddings,
+          f"{TRAIN_ARCH}: not its full-size config")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+
+    def run(name, tc, resume=False):
+        """One ``train`` call: its result, its launches (all must be 0:
+        training attention is ``attend_plain``), its peak memory and the
+        types of every parameter, moment and residual after its first two
+        steps."""
+        types = []
+
+        def record(step, params, opt, ef, met):
+            if len(types) < 2:
+                tensors = {"params": list(params.parameters()),
+                           "mu": opt.mu, "nu": opt.nu,
+                           "residual": ef.residual if ef else []}
+                types.append({k: sorted({str(t.dtype).removeprefix("torch.")
+                                         for t in v})
+                              for k, v in tensors.items()})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = lm_train.train(TRAIN_ARCH, tc, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, resume=resume, device="cuda",
+                             callback=record)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check(not any(launches.values()),
+              f"LM train {name}: kernel launches {launches}")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"LM train {name}: losses {res.losses}")
+        # the reference's types: every bf16 parameter float32 after the
+        # first step, every parameter, moment and residual after the second
+        first, second = types
+        check(first["params"] == ["float32"] and all(
+            v in ([], ["float32"]) for v in second.values()),
+              f"LM train {name}: types after two steps {types}")
+        return res, {"wall_s": wall, "launches": launches,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "types": types, "losses": res.losses,
+                     "step_ms": [1e3 * t for t in res.step_s],
+                     "start": res.start}
+
+    # (a) 12 steps, save_async at step 10
+    ck_a = os.path.join(work, "lm_train_a")
+    tc = lm_train.TrainConfig(steps=TRAIN_STEPS, lr=TRAIN_LR,
+                              warmup=TRAIN_WARMUP,
+                              checkpoint_every=TRAIN_CKPT_EVERY,
+                              checkpoint_dir=ck_a)
+    res_a, rec_a = run("(a)", tc)
+    n_params = sum(p.numel() for p in res_a.params.parameters())
+    check(rec_a["types"][0]["mu"] == rec_a["types"][0]["nu"] == ["bfloat16"],
+          f"LM train (a): moments after step 0 {rec_a['types'][0]}, not "
+          f"the reference's bf16")
+    steps_a = lm_train.CheckpointManager(ck_a).all_steps()
+    check(steps_a == [TRAIN_CKPT_EVERY],
+          f"LM train (a): checkpoints at {steps_a}")
+    steady = sorted(rec_a["step_ms"][1:])
+    step_ms = steady[len(steady) // 2]
+    # model FLOPs of a step: 6 x parameters (the tied head's product
+    # included) per token, and attention's 12 x layers x heads x head dim
+    # x sequence per token (PaLM's count; remat's recompute not counted)
+    flops = tokens * (6 * n_params + 12 * cfg.n_layers * cfg.n_heads
+                      * cfg.hd * TRAIN_SEQ)
+    rec_a.update(params=n_params, step0_ms=rec_a["step_ms"][0],
+                 median_step_ms=step_ms, tok_s=tokens / (step_ms / 1e3),
+                 model_flops=flops, model_flop_s=flops / (step_ms / 1e3),
+                 f32_peak_share=flops / (step_ms / 1e3) / F32_FLOPS,
+                 save_block_s=res_a.save_block_s, write_s=res_a.write_s,
+                 wait_s=res_a.wait_s)
+    rec_a["profile"] = prof = train_profile(res_a, tc)
+    out["a"] = rec_a
+    loss_at_ckpt = res_a.losses[TRAIN_CKPT_EVERY]
+    losses_a = res_a.losses
+    del res_a
+    torch.cuda.empty_cache()
+    print(f"phase 19 {card}: {TRAIN_ARCH} at full width ({n_params / 1e6:.1f}M "
+          f"parameters, bf16 at init, remat) trained {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {rec_a['wall_s']:.1f} s: "
+          f"step 0 {rec_a['step0_ms']:.0f} ms, then median {step_ms:.0f} ms "
+          f"(steps {min(steady):.0f}-{max(steady):.0f} ms), {rec_a['tok_s']:.0f}"
+          f" tokens/s, model FLOP/s {rec_a['model_flop_s'] / 1e12:.2f} T "
+          f"({100 * rec_a['f32_peak_share']:.1f}% of {F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s float32; TF32 off); peak memory "
+          f"{rec_a['peak_bytes'] / 2**30:.2f} GiB; types after steps 0, 1 "
+          f"{rec_a['types']}; launches {rec_a['launches']}", flush=True)
+    print(f"phase 19 {card}: one more step of (a) under the profiler: "
+          f"{prof['wall_ms']:.0f} ms on the host's clock, the device busy "
+          f"{prof['busy_ms']:.0f} ms of it ({prof['kernels']} kernels; idle "
+          f"share {100 * prof['idle_share']:.1f}%); by device time "
+          + ", ".join(f"{n} {ms:.1f} ms x {c}" for n, ms, c in prof["top"]),
+          flush=True)
+    print(f"phase 19 {card}: loss curve (a) "
+          + ", ".join(f"{x:.4f}" for x in losses_a), flush=True)
+    print(f"phase 19 {card}: checkpoints at steps {steps_a}: save_async "
+          f"held the loop {', '.join(f'{x:.3f}' for x in rec_a['save_block_s'])}"
+          f" s, each write took {', '.join(f'{x:.2f}' for x in rec_a['write_s'])}"
+          f" s on the writer thread, the final wait {rec_a['wait_s']:.2f} s",
+          flush=True)
+
+    # (b) a fresh train() resumed from (a)'s step-10 checkpoint
+    with open(os.path.join(ck_a, f"step_{TRAIN_CKPT_EVERY:010d}",
+                           "manifest.json")) as f:
+        extra = json.load(f)["extra"]
+    check(extra["step"] == extra["pipeline"]["step"] == TRAIN_CKPT_EVERY,
+          f"LM train: the checkpoint's extra {extra}")
+    res_b, rec_b = run("(b)", tc, resume=True)
+    first = res_b.losses[0]
+    rel = abs(first - loss_at_ckpt) / abs(loss_at_ckpt)
+    check(res_b.start == TRAIN_CKPT_EVERY and rel <= TRAIN_RESUME_TOL,
+          f"LM train (b): resumed at {res_b.start}, first loss {first} "
+          f"against (a)'s {loss_at_ckpt} at step {TRAIN_CKPT_EVERY}")
+    check(res_b.pipeline_state["step"] == TRAIN_STEPS,
+          f"LM train (b): the pipeline ended at {res_b.pipeline_state}")
+    apart = [abs(x - y) / abs(y) for x, y in zip(
+        res_b.losses[1:], losses_a[TRAIN_CKPT_EVERY + 1:])]
+    rec_b.update(first_loss_rel_err=rel, later_rel_apart=apart)
+    out["b"] = rec_b
+    del res_b
+    torch.cuda.empty_cache()
+    print(f"phase 19 {card}: (b) resumed from step {TRAIN_CKPT_EVERY} "
+          f"(parameters and pipeline; the optimizer fresh, as in the "
+          f"reference): first loss {first:.6f} against (a)'s "
+          f"{loss_at_ckpt:.6f}, relative {rel:.3g} (limit "
+          f"{TRAIN_RESUME_TOL}); the next {len(apart)} losses "
+          f"{', '.join(f'{x:.4f}' for x in rec_b['losses'][1:])}, "
+          f"{max(apart):.3g} apart from (a)'s at most; "
+          f"{rec_b['wall_s']:.1f} s", flush=True)
+
+    # (c) three steps under each compressor, then each compressor timed
+    # on the run's own gradients' shapes (its parameters stand in for them)
+    for mode in ("int8", "topk"):
+        res_c, rec_c = run(f"({mode})", lm_train.TrainConfig(
+            steps=TRAIN_COMPRESS_STEPS, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+            grad_compress=mode))
+        plist = [p.detach() for p in res_c.params.parameters()]
+        groups = res_c.params.leaf_groups()
+        ef = res_c.ef_state
+        rec_c["compress_ms"] = cuda_ms(
+            lambda: compress_with_error_feedback(plist, ef, mode,
+                                                 groups=groups), 3)
+        rec_c["mean_step_ms"] = (sum(rec_c["step_ms"][1:])
+                                 / len(rec_c["step_ms"][1:]))
+        out[mode] = rec_c
+        del res_c, plist, ef
+        torch.cuda.empty_cache()
+        print(f"phase 19 {card}: ({mode}) {TRAIN_COMPRESS_STEPS} steps, "
+              f"losses {', '.join(f'{x:.4f}' for x in rec_c['losses'])}, "
+              f"steps {', '.join(f'{x:.0f}' for x in rec_c['step_ms'])} ms; "
+              f"the compressor {rec_c['compress_ms']:.2f} ms a step over "
+              f"{len(groups)} leaves; peak memory "
+              f"{rec_c['peak_bytes'] / 2**30:.2f} GiB; types after steps 0, "
+              f"1 {rec_c['types']}", flush=True)
+    out["phase_s"] = time.perf_counter() - t19
+    print(f"phase 19 {card}: whole phase {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2914,6 +3162,18 @@ def smoke(args, pool, work: str) -> int:
             rec["variants"] = rec["variants"] + lm["k4"]
     print(f"phase 18: launches by path {path_launches}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- phase 19: the LM training path ----------------------------------
+    lm_train = train_phase(card, work, reset_counts, read_counts)
+    path_launches["lm_train"] = {
+        name: sum(lm_train[run]["launches"][name]
+                  for run in ("a", "b", "int8", "topk"))
+        for name in counted}
+    for rec in kernels:
+        rec["launches_by_path"]["lm_train"] = path_launches["lm_train"][
+            rec["name"]]
+    print(f"phase 19: launches {path_launches['lm_train']} (training "
+          f"attention is the plain version); whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "fig11_bicg_timeline.csv"),
@@ -2936,7 +3196,8 @@ def smoke(args, pool, work: str) -> int:
                        "fig12": fig12, "headline": headline,
                        "ipc": ipc_rows, "chain_reasons": reasons,
                        "chain_s": chain_s, "throughput": thru,
-                       "crash_safety": crash, "lm": lm}, f,
+                       "crash_safety": crash, "lm": lm,
+                       "lm_train": lm_train}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

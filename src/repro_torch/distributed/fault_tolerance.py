@@ -13,9 +13,8 @@ stands alone.
   exists so that crashed or stalled owners are reclaimed instead of
   wedging the grid.
 
-The reference's straggler and re-mesh planners (``plan_backup_dispatch``,
-``plan_remesh``) belong to the distributed training launchers and are not
-copied.
+* The straggler and re-mesh planners (:func:`plan_backup_dispatch`,
+  :func:`plan_remesh`): pure policy a cluster controller would drive.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import json
 import os
 import socket
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -183,3 +182,28 @@ def release_lease(path: str) -> None:
         os.unlink(path)
     except OSError:
         pass
+
+
+def plan_backup_dispatch(stragglers: List[int], spares: List[int]
+                         ) -> Dict[int, int]:
+    """Deadline-based straggler mitigation: map each straggler's micro-batch
+    onto a spare host (first-finisher wins, loser's result is dropped)."""
+    return {s: spare for s, spare in zip(stragglers, spares)}
+
+
+def plan_remesh(n_hosts_alive: int, chips_per_host: int,
+                model_parallel: int,
+                pods: Tuple[int, ...] = (4, 2, 1)) -> Optional[Tuple[int, int, int]]:
+    """Pick the largest (pod, data, model) mesh the surviving chips support,
+    preserving the model axis (weight layouts stay valid on restore)."""
+    chips = n_hosts_alive * chips_per_host
+    for pod in pods:
+        if chips % pod:
+            continue
+        per_pod = chips // pod
+        if per_pod % model_parallel:
+            continue
+        data = per_pod // model_parallel
+        if data >= 1:
+            return (pod, data, model_parallel)
+    return None

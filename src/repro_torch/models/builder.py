@@ -17,18 +17,23 @@ layers`` says which path each block takes).
 Decode state, ``states[segment][layer][block key]``: attention blocks carry
 head-major (k, v) caches (B, Hkv, S_max, D), written in place by
 :func:`decode`; ssd carries (B, H, P, N) states; lru (B, D) states; xattn
-the encoder's (k, v).  The reference's sharding hints (``constrain``, a
-no-op without a mesh) and its rematerialisation flag (``cfg.remat``, which
-changes no value) have no counterpart here.
+the encoder's (k, v).  ``cfg.remat`` (set in every full-size config) runs
+each layer of a training forward under non-reentrant
+``torch.utils.checkpoint``, as the reference wraps its scan body in
+``jax.checkpoint``: no value changes, a layer's activations are recomputed
+in the backward pass instead of kept.  The reference's sharding hints
+(``constrain``, a no-op without a mesh) have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
@@ -126,6 +131,19 @@ class LMParams(nn.Module):
         self.segments = nn.ModuleList(segment(s) for s in tree["segments"])
         self.enc_segments = nn.ModuleList(
             segment(s) for s in tree.get("enc_segments", ()))
+
+    def leaf_groups(self) -> List[List[int]]:
+        """Indices into ``list(self.parameters())`` grouped as the
+        reference's leaves: one group per (segment, block key, name), its
+        layers in order (the reference stacks them), and one for each of
+        the rest."""
+        groups: Dict[Tuple[str, ...], List[int]] = {}
+        for i, (name, _) in enumerate(self.named_parameters()):
+            parts = name.split(".")
+            if parts[0] in ("segments", "enc_segments"):
+                del parts[2]          # segments.<segment>.<layer>.<key>.<name>
+            groups.setdefault(tuple(parts), []).append(i)
+        return list(groups.values())
 
 
 def _init_block(kind: str, cfg: ArchConfig, gen: torch.Generator, dtype,
@@ -284,26 +302,55 @@ def _apply_block(kind: str, h, bp, cfg: ArchConfig, *, mode: str,
     raise ValueError(kind)
 
 
+def _run_layer(seg: Segment, layer_params, h, cfg: ArchConfig, *,
+               mode: str, layer_states=None, cache_index=None, enc_out=None):
+    """One layer's blocks.  Returns (h, new states by block key, aux)."""
+    layer_new = {}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, kind in enumerate(seg.pattern):
+        key = f"b{i}_{kind}"
+        st = None if layer_states is None else layer_states.get(key)
+        h, out = _apply_block(kind, h, layer_params[key], cfg,
+                              mode=mode, state=st,
+                              cache_index=cache_index, enc_out=enc_out)
+        if kind == "moe":
+            aux = aux + out
+        elif out is not None and mode != "train":
+            layer_new[key] = out
+    return h, layer_new, aux
+
+
+def _train_layer(seg: Segment, layer_params, cfg: ArchConfig, enc_out, h):
+    h, _, aux = _run_layer(seg, layer_params, h, cfg, mode="train",
+                           enc_out=enc_out)
+    return h, aux
+
+
 def _run_segment(seg: Segment, seg_params, h, cfg: ArchConfig, *,
                  mode: str, states=None, cache_index=None, enc_out=None):
     """One segment, layer by layer.  states: per layer, block key -> state
-    (or None).  Returns (h, new_states or None, aux)."""
+    (or None).  Returns (h, new_states or None, aux).
+
+    With ``cfg.remat`` set, a layer that autograd records in ``mode="train"``
+    runs under non-reentrant ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass instead of kept (the reference's
+    ``jax.checkpoint`` of its scan body).  The recompute runs with autograd
+    on, so attention takes the same differentiable path as the forward."""
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_states: List[Optional[Dict]] = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for li in range(seg.count):
-        layer_params = seg_params[li]
-        layer_states = None if states is None else states[li]
-        layer_new = {}
-        for i, kind in enumerate(seg.pattern):
-            key = f"b{i}_{kind}"
-            st = None if layer_states is None else layer_states.get(key)
-            h, out = _apply_block(kind, h, layer_params[key], cfg,
-                                  mode=mode, state=st,
-                                  cache_index=cache_index, enc_out=enc_out)
-            if kind == "moe":
-                aux = aux + out
-            elif out is not None and mode != "train":
-                layer_new[key] = out
+        if remat:
+            h, layer_aux = checkpoint(
+                functools.partial(_train_layer, seg, seg_params[li], cfg,
+                                  enc_out), h, use_reentrant=False)
+            layer_new = None
+        else:
+            h, layer_new, layer_aux = _run_layer(
+                seg, seg_params[li], h, cfg, mode=mode,
+                layer_states=None if states is None else states[li],
+                cache_index=cache_index, enc_out=enc_out)
+        aux = aux + layer_aux
         new_states.append(layer_new or None)
     if all(s is None for s in new_states):
         new_states = None

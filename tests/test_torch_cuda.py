@@ -9,13 +9,16 @@ agrees with the CPU, and each request K1 declines replays on the NumPy
 engine without a launch, equal to the legacy engine.  The crash-safety
 plane runs on the card too: ``chaos-smoke`` on K1 converges, a lease pool
 spawned from a CUDA process trains once per trace, and two processes
-asking for one prediction key train it once.
+asking for one prediction key train it once.  The LM zoo trains on the
+card as on the CPU (train steps, a checkpoint round trip, the gradient
+compressors at full width).
 Every test here needs a CUDA device and nvcc (a CUDA kernel has no CPU
 mode) and skips without one.  The module imports neither jax nor the
 reference package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
 import dataclasses
 import json
 import os
@@ -668,6 +671,137 @@ def test_reduced_lm_prefill_and_decode_match_the_cpu(device, monkeypatch,
     assert (n == 0) if name == "recurrentgemma-9b" else (n > 0)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def _train_steps(model, params, device, mode, steps=4):
+    """``steps`` train steps of the port on ``device`` from a copy of
+    ``params``: (losses, the types and values of every parameter and
+    moment after each step)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as port_train
+    from repro_torch.optimizer import (AdamW, init_error_feedback,
+                                       linear_warmup_cosine)
+    params = copy.deepcopy(params).to(device)
+    opt = AdamW(weight_decay=0.1, clip_norm=1.0)
+    step_fn = port_train.make_train_step(
+        model, opt, linear_warmup_cosine(3e-4, 2, steps), mode)
+    plist = list(params.parameters())
+    state = opt.init(plist)
+    ef = init_error_feedback(plist) if mode else None
+    pipe = TokenPipeline(vocab=model.cfg.vocab, seq_len=64, batch_size=2)
+    losses, after = [], []
+    for step in range(steps):
+        batch = {"tokens": torch.from_numpy(
+            pipe.next_batch()["tokens"]).long().to(device)}
+        params, state, ef, met = step_fn(params, state, ef, batch, step)
+        losses.append(met["loss"].item())
+        after.append([(p.dtype, p.detach().cpu().double(), m.dtype, v.dtype)
+                      for p, m, v in zip(params.parameters(), state.mu,
+                                         state.nu)])
+    return losses, after
+
+
+@pytest.mark.parametrize("name,dtype,mode", [
+    ("llama3-8b", "float32", None), ("smollm-135m", "float32", "int8"),
+    ("mamba2-780m", "float32", "topk"), ("smollm-135m", "bfloat16", None),
+    ("qwen3-moe-235b-a22b", "bfloat16", "int8")])
+def test_reduced_lm_train_steps_match_the_cpu(device, monkeypatch, name,
+                                              dtype, mode):
+    """Four train steps of a reduced text arch on the card (bf16 configs
+    with remat on, as the full-size configs are) against the port on the
+    CPU from the same parameters and batches, with no launch of K1-K4.
+    Every parameter's and moment's type equal after each step (bf16 turns
+    float32 as in the reference); float32: losses within 1e-4 relative and
+    the update within 5e-2 of its norm (the CPU tests' limits against the
+    reference, float32 with TF32 off); bf16: 2e-2 and 0.6, the CPU tests'
+    bf16 limits (the first step's bf16 rounding decides which tiny
+    gradients flip sign)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(name).reduced()
+    if dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, dtype=dtype, remat=True)
+    model = lm.build_model(cfg)
+    params = lm.init_params(model, torch.Generator().manual_seed(3))
+    p0 = [p.detach().double() for p in params.parameters()]
+    loss_tol, upd_tol = (1e-4, 5e-2) if dtype == "float32" else (2e-2, 0.6)
+    want_losses, want = _train_steps(model, params, "cpu", mode)
+    counts = [k.launches for k in (flash_attention, hlsh_attention,
+                                   int4_matmul, lane_replay)]
+    got_losses, got = _train_steps(model, params, device, mode)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (flash_attention, hlsh_attention,
+                                 int4_matmul, lane_replay)] == counts
+    for step, (gl, wl, g, w) in enumerate(zip(got_losses, want_losses, got,
+                                              want)):
+        assert np.isfinite(gl)
+        assert abs(gl - wl) <= loss_tol * abs(wl), (step, gl, wl)
+        assert [(a[0], a[2], a[3]) for a in g] == \
+            [(a[0], a[2], a[3]) for a in w], step
+        num = sum(float(((a[1] - b[1]) ** 2).sum()) for a, b in zip(g, w))
+        den = sum(float(((b[1] - z) ** 2).sum()) for b, z in zip(w, p0))
+        assert num ** 0.5 <= upd_tol * den ** 0.5 + 1e-12, (step, num, den)
+    if dtype == "bfloat16":
+        assert {a[0] for a in got[0]} == {torch.float32}
+
+
+def test_checkpoint_round_trip_from_and_onto_the_card(device, tmp_path):
+    """A bf16 ``LMParams`` on the card saved by ``save_async`` and restored
+    onto the card into a fresh template (in place, bit for bit, bf16) and
+    onto the CPU; then float32 parameters (as after a step) into the bf16
+    template, which turns float32 on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+    cfg = dataclasses.replace(get_arch("smollm-135m").reduced(),
+                              dtype="bfloat16")
+    model = lm.build_model(cfg)
+    saved = lm.init_params(model, torch.Generator(device=device)
+                           .manual_seed(1))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, saved, {"step": 1})
+    mgr.wait()
+    template = lm.init_params(model, torch.Generator(device=device)
+                              .manual_seed(2))
+    got, extra = mgr.restore(template)
+    assert got is template and extra == {"step": 1}
+    want = dict(saved.named_parameters())
+    for n, p in got.named_parameters():
+        assert p.device.type == "cuda" and p.dtype == torch.bfloat16, n
+        assert torch.equal(p.detach().view(torch.int16),
+                           want[n].detach().view(torch.int16)), n
+    on_cpu, _ = mgr.restore({n: p.detach() for n, p in
+                             saved.named_parameters()}, device="cpu")
+    assert all(t.device.type == "cpu" and torch.equal(t, want[n].cpu())
+               for n, t in on_cpu.items())
+    saved.float()
+    mgr.save(2, saved, {"step": 2})
+    got, _ = mgr.restore(template, step=2)
+    for n, p in got.named_parameters():
+        assert p.device.type == "cuda" and p.dtype == torch.float32, n
+        assert torch.equal(p.detach(), want[n].detach()), n
+
+
+def test_compressors_at_the_tied_embedding_size_match_the_cpu(device):
+    """``topk`` and ``int8`` on a 49,152 x 960 float32 tensor (47.2M
+    entries, smollm-360m's tied embedding) on the card against the CPU:
+    top-k equal but among ties at the k-th magnitude (two sorts may break
+    them otherwise), int8 within one quantum (the card may round a
+    quotient within an ulp of a half quantum otherwise)."""
+    from repro_torch.optimizer import (int8_compress, int8_decompress,
+                                       topk_compress, topk_decompress)
+    x = torch.randn((49152, 960), generator=torch.Generator()
+                    .manual_seed(4))
+    want = topk_decompress(*topk_compress(x))
+    got = topk_decompress(*topk_compress(x.to(device))).cpu()
+    k = int(x.numel() * 0.05)
+    kth = torch.topk(x.abs().reshape(-1), k).values[-1]
+    diff = (got != want).reshape(-1)
+    assert bool((x.abs().reshape(-1)[diff] == kth).all())
+    assert int((got != 0).sum()) == k
+    q, s = int8_compress(x)
+    gq, gs = int8_compress(x.to(device))
+    assert float(gs) == float(s) and gq.dtype == torch.int8
+    assert int((gq.cpu().int() - q.int()).abs().max()) <= 1
+    y = int8_decompress(gq, gs)
+    assert y.dtype == torch.float32 and y.device.type == "cuda"
 
 
 #: the reference's int4 test shapes, the simplified predictor's layer

@@ -47,7 +47,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr[-4000:]
     # every module of the port was imported, not a vacuous package
     names, count = res.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 76
+    assert int(count) >= 82
     assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
             "repro_torch.uvm.engine", "repro_torch.uvm.backends.numpy_backend",
             "repro_torch.uvm.backends.legacy_backend",
@@ -64,7 +64,10 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.rglru", "repro_torch.models.builder",
             "repro_torch.models.convert",
-            "repro_torch.launch.serve"} <= set(names.split())
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.data", "repro_torch.data.lm_pipeline",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.optimizer.grad_compress"} <= set(names.split())
 
 
 _FORBIDDEN = re.compile(
