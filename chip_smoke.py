@@ -62,8 +62,9 @@ zoo's serving and training paths on the card:
     resolved policy equals the legacy engine's probe, cycles included;
     then top-1, F1 and coverage per bench against the simplified family;
 14. the paper's predictor tables (Tables 1-8, Figs 5, 6 and 9 of
-    ``repro_torch.core.predictor_tables``) at the reference's sizes, 76
-    distinct fits on the card (K4 on every Transformer's evaluation, K2 on
+    ``repro_torch.core.predictor_tables``) at the reference's sizes but
+    half its training steps (``PTABLE_STEPS``), 76 distinct fits on the
+    card (K4 on every Transformer's evaluation, K2 on
     Table 5's HLSH rows, K3 on Table 8's quantized rows), each table's rows
     and columns and its metrics checked, the reference's own claims
     reported; then Fig 10 (tree and learned at 1, 2, 5 and 10 us per
@@ -137,12 +138,23 @@ zoo's serving and training paths on the card:
     model FLOP/s against the float32 peak, peak memory, the loss curve,
     the compressors' ms a step and the checkpoint's times are printed;
     one more step of (a) profiled (host clock, device-busy time, idle
-    share, kernels); then the ``kernels`` line and the result line.
+    share, kernels);
+20. the sharded path (``repro_torch.distributed.sharding``,
+    ``launch.{mesh,dryrun,roofline}``): in a process started before phase
+    19, the dry-run's step on CUDA fakes on a 1 x 1 mesh at phases 18-19's
+    sizes (smollm-360m train, llama3-8b prefill and decode; each roofline
+    step and tracked peak printed beside the card's) and llama3-8b
+    ``decode_32k`` on the 16 x 16 production mesh (K4's registered op on
+    fake DTensors, once a layer); smollm-360m 3 steps through
+    ``build_sharded_train`` on the host mesh (one rank, NCCL; FSDP and
+    ZeRO-1 on), its losses phase 19 (a)'s to 1e-6; K4's registered op timed
+    against its direct call; then the ``kernels`` line and the result
+    line.
 
 Every row of the driven paths 5-7 and 10-14 must say ``cuda``: a row on
 the NumPy engine or the legacy loop there fails the run.  Each of the
-thirteen driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17, 18's serve,
-18's trace replay and 19) zeroes the launch counters just before it and
+fourteen driven paths (5, 6, 7, 10, 11, 12, 13, 14, 16, 17, 18's serve,
+18's trace replay, 19 and 20) zeroes the launch counters just before it and
 reads them just after (phase 17's kernels run in its subprocesses, which log
 their counts).  The legacy
 engine's replays and the plain versions run in a pool of worker processes
@@ -281,6 +293,11 @@ K4_TABLE_SHAPES = tuple((512, 4, 4, 30, 30, d) for d in (2, 3, 4, 6, 8)) + (
     (512, 1, 1, 30, 30, 12),)
 K3_TABLE8_SHAPES = ((512 * 30, 12, 12), (512 * 30, 12, 48),
                     (512 * 30, 48, 12))
+#: phase 14's predictor training steps, (STEPS, REVISED_STEPS, FIG5_STEPS)
+#: of repro_torch.core.predictor_tables: half the reference's (150, 400,
+#: 150), cut (its checks unchanged) to keep the whole run under 1,100 s of
+#: its 1,200 with phase 20 on a host whose fits run 1.5x slower
+PTABLE_STEPS = (75, 200, 75)
 #: the bench whose Fig 10 rows are held against the legacy engine
 FIG10_CHECK_BENCH = "NW"
 #: the Transformer family's learned cells (phase 13)
@@ -344,6 +361,29 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
 #: the resumed run's first loss against (a)'s at step 10: the same
 #: parameters (restored bit for bit) and the same batch on the same card
 TRAIN_RESUME_TOL = 1e-6
+#: phase 20, the sharded path (repro_torch.distributed.sharding,
+#: launch.{mesh,dryrun,roofline}, launch.train.build_sharded_train): (a) the
+#: dry-run's step on CUDA fakes on a 1 x 1 mesh at phases 18-19's sizes,
+#: (arch, kind, sequence or cache length, batch), its roofline step and
+#: tracked peak printed beside what phases 18-19 measured; (b) llama3-8b
+#: decode_32k on the 16 x 16 production mesh (fake DTensors; K4's
+#: registered op once per layer); both in a subprocess on a fake process
+#: group, started before phase 19 and overlapping it on the host;
+#: (c) smollm-360m through build_sharded_train on the host mesh (one rank,
+#: NCCL), FSDP and ZeRO-1 on, MESH_TRAIN_STEPS steps of phase 19 (a)'s
+#: schedule, its losses (a)'s first to MESH_TRAIN_TOL relative; then K4's
+#: registered op against its direct call, host ms a call at the decode
+#: step's shape (MESH_DISPATCH_CALLS calls, in turns)
+MESH_CAL_CELLS = (("smollm-360m", "train", TRAIN_SEQ, TRAIN_BATCH),
+                  ("llama3-8b", "prefill", LM_SERVE["prompt_len"],
+                   LM_SERVE["requests"]),
+                  ("llama3-8b", "decode",
+                   LM_SERVE["prompt_len"] + LM_SERVE["gen"] - 1,
+                   LM_SERVE["requests"]))
+MESH_CELL = ("llama3-8b", "decode_32k")
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_TOL = 1e-6
+MESH_DISPATCH_CALLS = 200
 #: bytes that timed calls touch before one touches the same memory again:
 #: four times the H100's 50 MB L2, so each call reads and writes HBM
 ROTATE_BYTES = 200e6
@@ -758,6 +798,7 @@ def k4_lm_record(rng, shape, causal, extra=0):
     error against the plain version on float32 copies."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
                                                      flash_attention_plain,
                                                      flash_geometry,
                                                      split_plan)
@@ -767,7 +808,9 @@ def k4_lm_record(rng, shape, causal, extra=0):
     err = rel_max(flash_attention(*qkv, causal=causal),
                   flash_attention_plain(*(t.float() for t in qkv),
                                         causal=causal))
-    nbytes = 2 * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    # the work K4's bound and its registered op's FLOP count read
+    ops, nbytes = flash_attention_cost(qkv[0].shape, qkv[1].shape, causal,
+                                       2)
     def clone(t):
         """A copy of ``t`` in a cache of its own of Sk + extra keys."""
         cache = t.new_empty((b, t.shape[1], sk + extra, d))
@@ -785,12 +828,8 @@ def k4_lm_record(rng, shape, causal, extra=0):
             copies),
         "plain": rotating(lambda q, k, v: flash_attention_plain(
             q, k, v, causal=causal), copies)})
-    # the (query, key) pairs the mask lets through, a product of D in
-    # each of the two matrix products
-    pairs = (sum(min(sk, i + 1 + sk - sq) for i in range(sq)) if causal
-             else sq * sk)
     by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = 4 * b * h * d * pairs / BF16_FLOPS * 1e3
+    by_ops = ops / BF16_FLOPS * 1e3
     bound = max(by_bytes, by_ops)
     dev = t["kernel"]["device_ms"]
     geo = flash_geometry(b * h, sq, sk, d, torch.bfloat16, h // hkv, causal)
@@ -1357,6 +1396,191 @@ def train_phase(card: str, work: str, reset_counts, read_counts) -> dict:
     return out
 
 
+def lowerings(path: str) -> None:
+    """Phase 20 (a) and (b), run in a process of its own (a fake process
+    group of 256 ranks): the dry-run's records of MESH_CAL_CELLS on a 1 x 1
+    mesh and of MESH_CELL on the single-pod mesh, with CUDA fakes, written
+    to ``path`` as JSON with each cell's wall seconds."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_world, make_production_mesh
+    t0 = time.perf_counter()
+    init_fake_world(256)
+    one = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    recs = {}
+    for arch, kind, seq, batch in MESH_CAL_CELLS:
+        t = time.perf_counter()
+        rec = dryrun.lower_cell(arch, ShapeSpec(f"{kind}_{seq}", seq, batch,
+                                                kind), one)
+        rec["wall_s"] = time.perf_counter() - t
+        recs[f"{arch} {kind}"] = rec
+    t = time.perf_counter()
+    rec = dryrun.lower_cell(*MESH_CELL, make_production_mesh(
+        device_type="cuda"))
+    rec["wall_s"] = time.perf_counter() - t
+    recs["production"] = rec
+    recs["process_s"] = time.perf_counter() - t0
+    with open(path + ".tmp", "w") as f:
+        json.dump(recs, f)
+    os.replace(path + ".tmp", path)
+
+
+def mesh_phase(card: str, lm: dict, lm_train: dict, lowering, low_path: str,
+               reset_counts, read_counts) -> dict:
+    """Phase 20, the sharded path: (c) smollm-360m through
+    ``build_sharded_train`` on the host mesh against phase 19 (a); K4's
+    registered op's dispatch cost; then (a) and (b) from the ``lowerings``
+    process.  Returns the phase's records."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_op)
+    from repro_torch.launch import train as lm_train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t20 = time.perf_counter()
+    out = {}
+    # (c) the meshed training step against phase 19 (a)
+    mesh = make_host_mesh("cuda")
+    try:
+        tc = lm_train_mod.TrainConfig(steps=MESH_TRAIN_STEPS, lr=TRAIN_LR,
+                                      warmup=TRAIN_WARMUP, fsdp=True,
+                                      zero1=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = lm_train_mod.train(TRAIN_ARCH, tc, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    want = lm_train["a"]["losses"][:MESH_TRAIN_STEPS]
+    rel = [abs(x - y) / abs(y) for x, y in zip(res.losses, want)]
+    check(not any(launches.values()),
+          f"LM mesh train: kernel launches {launches}")
+    check(len(rel) == MESH_TRAIN_STEPS and max(rel) <= MESH_TRAIN_TOL,
+          f"LM mesh train: losses {res.losses} against phase 19 (a)'s "
+          f"{want} (limit {MESH_TRAIN_TOL} relative)")
+    step_ms = [1e3 * t for t in res.step_s]
+    out["train"] = {"losses": res.losses, "want": want, "rel_err": rel,
+                    "step_ms": step_ms, "wall_s": wall, "launches": launches,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "placements": sorted({str(p.placements) for p in
+                                          res.params.parameters()})}
+    del res
+    torch.cuda.empty_cache()
+    base_ms = lm_train["a"]["step_ms"][:MESH_TRAIN_STEPS]
+    print(f"phase 20 {card}: (c) {TRAIN_ARCH} through build_sharded_train on "
+          f"the host mesh (1 x 1, NCCL; FSDP and ZeRO-1 on), "
+          f"{MESH_TRAIN_STEPS} steps: losses "
+          f"{', '.join(f'{x:.6f}' for x in out['train']['losses'])} against "
+          f"phase 19 (a)'s {', '.join(f'{x:.6f}' for x in want)}, relative "
+          f"{max(rel):.3g} (limit {MESH_TRAIN_TOL}); steps "
+          f"{', '.join(f'{x:.0f}' for x in step_ms)} ms against phase 19's "
+          f"{', '.join(f'{x:.0f}' for x in base_ms)}; peak memory "
+          f"{out['train']['peak_bytes'] / 2**30:.2f} GiB against "
+          f"{lm_train['a']['peak_bytes'] / 2**30:.2f}; launches {launches}",
+          flush=True)
+
+    # K4's registered op against the direct call: host ms a call, in turns
+    rng = np.random.default_rng(20)
+    b, s, gen = (LM_SERVE["requests"], LM_SERVE["prompt_len"],
+                 LM_SERVE["gen"])
+    q, k, v = cache_view(rng, (b, 32, 8, 1, s + gen - 1, 128), 1)
+    check(torch.equal(flash_attention_op(q, k, v, True),
+                      flash_attention(q, k, v, causal=True)),
+          "K4's registered op differs from its direct call")
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_DISPATCH_CALLS):
+            fn(q, k, v, True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / MESH_DISPATCH_CALLS * 1e3
+
+    times = {"op": [], "direct": []}
+    for name in ("op", "direct", "direct", "op", "op", "direct"):
+        times[name].append(per_call(flash_attention_op if name == "op"
+                                    else flash_attention))
+    op_ms, direct_ms = min(times["op"]), min(times["direct"])
+    out["k4_dispatch"] = {"op_ms": op_ms, "direct_ms": direct_ms,
+                          "dispatch_ms": op_ms - direct_ms,
+                          "decode_step_host_ms":
+                              lm["decode_profile"]["wall_ms"]}
+    print(f"phase 20 {card}: K4's registered op at (8, 32, 8, 1, 575, 128) "
+          f"over a cache view: {op_ms:.4f} ms a call on the host's clock "
+          f"against the direct call's {direct_ms:.4f} (best of 3 x "
+          f"{MESH_DISPATCH_CALLS}): {1e3 * (op_ms - direct_ms):.1f} us of "
+          f"dispatch a call, x {32} layers = "
+          f"{32 * (op_ms - direct_ms):.3f} ms of a decode step's "
+          f"{lm['decode_profile']['wall_ms']:.2f} ms (phase 18)", flush=True)
+
+    # (a) and (b) from the lowering process
+    t0 = time.perf_counter()
+    rc = lowering.wait(timeout=300)
+    out["lowering_wait_s"] = time.perf_counter() - t0
+    check(rc == 0, f"phase 20 lowerings exited {rc}")
+    with open(low_path) as f:
+        recs = json.load(f)
+    out["lowerings"] = recs
+    for name, rec in recs.items():
+        if name == "process_s":
+            continue
+        check(rec["status"] == "ok", f"phase 20 lowering {name}: {rec}")
+        check(rec["roofline"]["flops"] > 0 and math.isfinite(
+            rec["roofline"]["step_s"]), f"phase 20 lowering {name}: {rec}")
+        # K4's op once a layer at inference, never in training
+        want_k4 = 0 if name == "smollm-360m train" else 32
+        check(rec["k4_calls"] == want_k4, f"phase 20 lowering {name}: K4's "
+              f"op {rec['k4_calls']} times, not {want_k4}")
+    serve = lm["serve"]
+    measured = {
+        "smollm-360m train": (f"step 0 {lm_train['a']['step0_ms']:.0f} ms",
+                              lm_train["a"]["peak_bytes"],
+                              "phase 19 (a), 12 steps, float32 after step 0"),
+        "llama3-8b prefill": (f"prefill {serve['prefill_ms']:.1f} ms",
+                              serve["peak_bytes"],
+                              "phase 18's serve, decode included"),
+        "llama3-8b decode": (
+            f"a decode step {lm['decode_profile']['wall_ms']:.2f} ms on the "
+            f"host's clock, the device busy "
+            f"{lm['decode_profile']['busy_ms']:.2f} ms",
+            serve["peak_bytes"], "phase 18's serve")}
+    for name, (what, peak, whose) in measured.items():
+        rec = recs[name]
+        r = rec["roofline"]
+        print(f"phase 20 {card}: (a) {name} ({rec['shape']}, batch "
+              f"{TRAIN_BATCH if 'train' in name else LM_SERVE['requests']}) "
+              f"on a 1 x 1 mesh, CUDA fakes: roofline step {1e3 * r['step_s']:.2f} ms (compute "
+              f"{1e3 * r['compute_s']:.2f}, memory {1e3 * r['memory_s']:.2f}"
+              f", collective {1e3 * r['collective_s']:.2f}; {r['bottleneck']}"
+              f"-bound), tracked peak "
+              f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, lowered in "
+              f"{rec['wall_s']:.1f} s; measured: {what}, peak "
+              f"{peak / 2**30:.2f} GiB ({whose})", flush=True)
+    rec = recs["production"]
+    r = rec["roofline"]
+    print(f"phase 20 {card}: (b) {' '.join(MESH_CELL)} on single_pod_16x16 "
+          f"(CUDA fakes, K4's registered op on fake DTensors x 32): roofline "
+          f"step {1e3 * r['step_s']:.2f} ms (compute "
+          f"{1e3 * r['compute_s']:.3f}, memory {1e3 * r['memory_s']:.2f}, "
+          f"collective {1e3 * r['collective_s']:.2f}; {r['bottleneck']}-"
+          f"bound), peak {rec['memory']['peak_bytes'] / 2**30:.2f} GiB a "
+          f"chip, collectives {r['coll_counts']}, lowered in "
+          f"{rec['wall_s']:.1f} s; the lowering process took "
+          f"{recs['process_s']:.1f} s (overlapping phase 19), phase 20 "
+          f"waited {out['lowering_wait_s']:.1f} s for it", flush=True)
+    out["phase_s"] = time.perf_counter() - t20
+    print(f"phase 20 {card}: whole phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1374,15 +1598,21 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_",
                             dir=os.path.join(ROOT, "build"))
+    procs = []
     try:
-        return smoke(args, pool, work)
+        return smoke(args, pool, work, procs)
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 
 
-def smoke(args, pool, work: str) -> int:
-    """Every phase; ``work`` holds the sweeps' cell stores and caches."""
+def smoke(args, pool, work: str, procs: list) -> int:
+    """Every phase; ``work`` holds the sweeps' cell stores and caches;
+    ``procs`` gets each process it starts (the caller stops them)."""
     import numpy as np
     import torch
     from repro_torch.core import predictor_tables
@@ -2295,10 +2525,12 @@ def smoke(args, pool, work: str) -> int:
           flush=True)
 
     # ---- phase 14: the paper's predictor tables --------------------------
-    # Tables 1-8 and Figs 5, 6, 9 at the reference's sizes (150 steps, 400
-    # for revised cells; 10,000 training and 3,000 evaluation windows; full
-    # traces), each distinct cell fitted once; then Fig 10 on the main
-    # path's prediction cache.  Launches are read per table
+    # Tables 1-8 and Figs 5, 6, 9 at the reference's sizes (10,000 training
+    # and 3,000 evaluation windows; full traces) but PTABLE_STEPS' steps,
+    # each distinct cell fitted once; then Fig 10 on the main path's
+    # prediction cache.  Launches are read per table
+    (predictor_tables.STEPS, predictor_tables.REVISED_STEPS,
+     predictor_tables.FIG5_STEPS) = PTABLE_STEPS
     predictor_tables.clear_memo()
     reset_counts()
     t0 = time.perf_counter()
@@ -3162,6 +3394,15 @@ def smoke(args, pool, work: str) -> int:
             rec["variants"] = rec["variants"] + lm["k4"]
     print(f"phase 18: launches by path {path_launches}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # phase 20's lowerings run in a process of their own, beside phase 19
+    # (host work on fake tensors; the card is not used; phase 19 is device
+    # time, while phase 18's host-bound decode would feel the process)
+    low_path = os.path.join(work, "lowerings.json")
+    lowering = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.lowerings({low_path!r})"],
+        cwd=ROOT)
+    procs.append(lowering)
     # ---- phase 19: the LM training path ----------------------------------
     lm_train = train_phase(card, work, reset_counts, read_counts)
     path_launches["lm_train"] = {
@@ -3173,6 +3414,18 @@ def smoke(args, pool, work: str) -> int:
             rec["name"]]
     print(f"phase 19: launches {path_launches['lm_train']} (training "
           f"attention is the plain version); whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- phase 20: the sharded path --------------------------------------
+    lm_mesh = mesh_phase(card, lm, lm_train, lowering, low_path,
+                         reset_counts, read_counts)
+    path_launches["lm_mesh"] = lm_mesh["train"]["launches"]
+    for rec in kernels:
+        rec["launches_by_path"]["lm_mesh"] = path_launches["lm_mesh"][
+            rec["name"]]
+        if rec["name"] == "flash_attention":
+            rec["op_dispatch_ms"] = lm_mesh["k4_dispatch"]["dispatch_ms"]
+    print(f"phase 20: launches {path_launches['lm_mesh']} (the meshed "
+          f"training step's; the lowerings launch nothing); whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -3197,7 +3450,7 @@ def smoke(args, pool, work: str) -> int:
                        "ipc": ipc_rows, "chain_reasons": reasons,
                        "chain_s": chain_s, "throughput": thru,
                        "crash_safety": crash, "lm": lm,
-                       "lm_train": lm_train}, f,
+                       "lm_train": lm_train, "lm_mesh": lm_mesh}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -35,6 +35,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.sharding import set_data
 
 
 class CheckpointManager:
@@ -170,7 +173,11 @@ def _leaves(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
 def _rebuild(template: Any, loaded) -> Any:
     if isinstance(template, nn.Module):
         for p in template.parameters():
-            p.data = next(loaded)
+            t = next(loaded)
+            if isinstance(p, DTensor):    # a meshed run's: its shard of t
+                t = distribute_tensor(t, p.device_mesh, p.placements,
+                                      src_data_rank=None)
+            set_data(p, t)
         return template
     if isinstance(template, dict):
         out = {k: _rebuild(template[k], loaded) for k in sorted(template)}
@@ -182,6 +189,8 @@ def _to_host(tree: Any) -> List[Tuple[str, np.ndarray, str]]:
     """A copy of each leaf in host memory: (name, array, type name)."""
     out = []
     for name, t in _leaves(tree):
+        if isinstance(t, DTensor):      # a meshed run's: the whole tensor
+            t = t.full_tensor()
         t = t.detach().to("cpu", copy=True)
         dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:

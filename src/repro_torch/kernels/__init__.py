@@ -23,19 +23,25 @@ and ``read_launch_log`` sums them.
 """
 import json
 import os
+import sys
 from typing import Dict
 
 LAUNCH_LOG_ENV = "REPRO_LAUNCH_LOG"
 
 
+_WRAPPERS = ("lane_replay", "hlsh_attention", "int4_matmul",
+             "flash_attention")
+
+
 def launch_counts() -> Dict[str, int]:
-    """This process's launch counts of K1-K4, by wrapper name."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.hlsh_attention import hlsh_attention
-    from repro_torch.kernels.int4_matmul import int4_matmul
-    from repro_torch.kernels.lane_replay import lane_replay
-    return {fn.__name__: fn.launches for fn in (
-        lane_replay, hlsh_attention, int4_matmul, flash_attention)}
+    """This process's launch counts of K1-K4, by wrapper name (0 for a
+    kernel whose module this process never imported: nothing is imported
+    here, so a lease worker logs at once when its cell ends)."""
+    out = {}
+    for name in _WRAPPERS:
+        module = sys.modules.get(f"{__name__}.{name}")
+        out[name] = getattr(module, name).launches if module else 0
+    return out
 
 
 def log_launches() -> None:

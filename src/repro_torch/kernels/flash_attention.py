@@ -15,6 +15,15 @@ mask; :func:`split_plan` the split tiling's key splits.
 k and v may be views (a KV cache sliced to its live keys): their last two
 dims must be dense (stride D, then 1), their batch and head strides are
 free.  q is contiguous, and so is the output.
+
+:func:`flash_attention_op` is K4 registered with ``torch.library`` as
+``repro_torch::flash_attention``: on real tensors it calls
+:func:`flash_attention` (the same launch, counted once); on fake tensors it
+gives the output's shape and type and launches nothing; on DTensors it
+shards by :func:`_k4_sharding` (batch, or heads with their kv heads;
+:func:`register_k4_sharding`), and a
+FLOP count (``torch.utils.flop_counter``) reads :func:`flash_attention_cost`,
+the work the kernel does, not the plain version's S x S logits.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import build
 
@@ -219,3 +229,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """The (query, key) pairs a mask lets through: query i sees keys up to
+    ``i + Sk - Sq`` when causal, all Sk otherwise."""
+    if not causal:
+        return sq * sk
+
+    def upto(n):        # sum over j = 1..n of min(j, Sk), 0 for n <= 0
+        if n <= 0:
+            return 0
+        m = min(n, sk)
+        return m * (m + 1) // 2 + (n - m) * sk
+
+    return upto(sk) - upto(sk - sq)
+
+
+def flash_attention_cost(q_shape, k_shape, causal: bool,
+                         itemsize: int) -> Tuple[int, int]:
+    """(operations, bytes) of one K4 call, the work its bound counts: a
+    product of D in each of its two matrix products for every (query, key)
+    pair the mask lets through; q, k, v read once and the output written
+    once."""
+    b, h, sq, d = q_shape
+    hkv, sk = k_shape[1], k_shape[2]
+    ops = 4 * b * h * d * causal_pairs(sq, sk, causal)
+    nbytes = itemsize * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    return ops, nbytes
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    """K4 as a registered op (see the module docstring)."""
+    return flash_attention(q, k, v, causal)
+
+
+@flash_attention_op.register_fake
+def _k4_fake(q, k, v, causal):
+    _check(q, k, v)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _k4_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+              **kwargs) -> int:
+    return flash_attention_cost(q_shape, k_shape, causal, 1)[0]
+
+
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.flash_attention)(_k4_flops)
+
+
+def _k4_sharding(q, k, v, causal):
+    """K4's DTensor strategies, per mesh dim: everything replicated; the
+    batch (dim 0) sharded; or the heads (dim 1) of q, k, v and the output
+    sharded alike, which keeps each query head with its kv head where both
+    head counts divide the axis (DTensor drops a strategy that does not
+    divide; ``models.layers.match_kv_heads`` repeats k and v first where
+    the kv heads do not)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()], [Replicate(), Replicate(), Replicate(), None]),
+            ([Shard(0)], [Shard(0), Shard(0), Shard(0), None]),
+            ([Shard(1)], [Shard(1), Shard(1), Shard(1), None])]
+
+
+def register_k4_sharding() -> None:
+    """Give DTensor K4's strategies (:func:`_k4_sharding`).
+    ``repro_torch.distributed.sharding`` calls it before the port's first
+    DTensor: ``torch.distributed.tensor`` takes over a second to import,
+    and the processes that only launch K4 skip it."""
+    from torch.distributed.tensor.experimental import register_sharding
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(
+        _k4_sharding)

@@ -4,9 +4,15 @@ asynchronous atomic checkpoints and heartbeat beats.  Counterpart of the
 reference's ``repro.launch.train``.
 
 The step runs eagerly on ``--device`` (``cuda`` by default; with no card it
-exits with an error unless ``--device cpu`` is given): there is no ``jit``
-and no mesh, so ``--zero1`` and ``TrainConfig.fsdp`` change nothing on one
-device.  Training attention takes the differentiable path
+exits with an error unless ``--device cpu`` is given).  :func:`main` runs it
+on a (1, n) ``("data", "model")`` mesh over the ranks that exist
+(``launch.mesh.make_host_mesh``: NCCL on the card, gloo on the CPU), as the
+reference's does: :func:`build_sharded_train` places the parameters, the
+AdamW moments, the error feedback and the batch by
+``distributed.sharding``'s rules as DTensors, so ``TrainConfig.fsdp`` shards
+large weights over ``data`` and ``--zero1`` the moments (on a mesh of one
+rank each shard is the whole tensor, and the step computes the unmeshed
+step's values bit for bit).  Training attention takes the differentiable path
 (``models.layers.attend_plain``), never K4, and the full-size configs set
 ``remat``, so each layer's activations are recomputed in the backward pass.
 A step's wall time is taken after ``torch.cuda.synchronize()``.
@@ -32,11 +38,14 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import TokenPipeline
+from repro_torch.distributed import sharding as S
 from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model, init_params, train_loss
 from repro_torch.models.builder import LMParams
 from repro_torch.optimizer import (AdamW, AdamWState, ErrorFeedbackState,
@@ -86,6 +95,67 @@ def make_train_step(model, opt: AdamW, lr_fn, grad_compress: Optional[str]):
     return step_fn
 
 
+def build_sharded_train(model, mesh, tc: TrainConfig, shape_batch):
+    """Counterpart of the reference's ``build_sharded_train``: returns
+    (step_fn, shardings).  ``step_fn`` is :func:`make_train_step`'s step run
+    inside ``mesh``'s context on DTensor state, the batch distributed by
+    ``shardings["batch"]``, and the parameters, moments and residuals laid
+    out again by their rules after the update (AdamW replaces a tensor whose
+    type changes).  ``shardings`` holds the layouts by parameter name
+    (``params``, ``opt``, ``ef`` or None; ``batch`` by input name), the
+    ``AdamW`` (``optd``) and ``place(params, opt_state, ef_state)``, which
+    distributes fresh state by them (parameters in place)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    opt = AdamW(weight_decay=0.1, clip_norm=1.0)
+    lr_fn = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
+    inner = make_train_step(model, opt, lr_fn, tc.grad_compress)
+    with FakeTensorMode():
+        params_shape = init_params(model, torch.Generator().manual_seed(0))
+    p_sh = S.param_shardings_stacked(params_shape, mesh, fsdp=tc.fsdp)
+    o_sh = S.opt_shardings(p_sh, params_shape, mesh, zero1=tc.zero1)
+    ef_sh = o_sh if tc.grad_compress else None
+    b_sh = S.batch_shardings(shape_batch, mesh,
+                             next(iter(shape_batch.values())).shape[0])
+    names = [n for n, _ in params_shape.named_parameters()]
+    p_lays = [p_sh[n] for n in names]
+    o_lays = [o_sh[n] for n in names]
+
+    def place(params, opt_state, ef_state):
+        S.distribute_params(params, p_sh, mesh)
+        opt_state = opt_state._replace(**{
+            k: S.relayout([S.distribute(t, p_sh[n], mesh) for n, t in
+                           zip(names, getattr(opt_state, k))], o_lays, mesh)
+            for k in ("mu", "nu")})
+        if ef_state is not None:
+            ef_state = ef_state._replace(residual=S.relayout(
+                [S.distribute(t, p_sh[n], mesh) for n, t in
+                 zip(names, ef_state.residual)], o_lays, mesh))
+        return params, opt_state, ef_state
+
+    def step_fn(params, opt_state, ef_state, batch, step):
+        with S.mesh_context(mesh):
+            batch = {k: S.distribute(v, b_sh[k], mesh)
+                     for k, v in batch.items()}
+            params, opt_state, ef_state, metrics = inner(
+                params, opt_state, ef_state, batch, step)
+            plist = list(params.parameters())
+            for p, t in zip(plist, S.relayout(plist, p_lays, mesh)):
+                if t is not p:
+                    S.set_data(p, t.detach())
+            opt_state = opt_state._replace(
+                mu=S.relayout(opt_state.mu, o_lays, mesh),
+                nu=S.relayout(opt_state.nu, o_lays, mesh))
+            if ef_state is not None:
+                ef_state = ef_state._replace(residual=S.relayout(
+                    ef_state.residual, o_lays, mesh))
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+        return params, opt_state, ef_state, metrics
+
+    return step_fn, dict(params=p_sh, opt=o_sh, ef=ef_sh, batch=b_sh,
+                         optd=opt, place=place)
+
+
 @dataclasses.dataclass
 class TrainResult:
     """What one :func:`train` run produced."""
@@ -109,12 +179,14 @@ def _sync(device: torch.device) -> None:
 
 def train(arch: str, tc: TrainConfig = TrainConfig(), *, batch: int = 8,
           seq: int = 256, reduced: bool = False, resume: bool = False,
-          device: str = "cuda",
+          device: str = "cuda", mesh=None,
           callback: Optional[Callable[..., Any]] = None) -> TrainResult:
     """Train ``arch`` from random weights drawn on ``device`` from seed 0
     for ``tc.steps`` steps of ``batch`` x ``seq`` tokens, printing the
     reference's lines; ``callback(step, params, opt_state, ef_state,
-    metrics)`` runs after each step."""
+    metrics)`` runs after each step.  With a ``mesh`` (on ``device``'s
+    type) the step is :func:`build_sharded_train`'s and the state
+    DTensors."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to "
@@ -123,15 +195,23 @@ def train(arch: str, tc: TrainConfig = TrainConfig(), *, batch: int = 8,
     if reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    opt = AdamW(weight_decay=0.1, clip_norm=1.0)
-    lr_fn = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
-    step_fn = make_train_step(model, opt, lr_fn, tc.grad_compress)
-
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, batch_size=batch)
+    if mesh is None:
+        opt = AdamW(weight_decay=0.1, clip_norm=1.0)
+        lr_fn = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
+        step_fn = make_train_step(model, opt, lr_fn, tc.grad_compress)
+    else:
+        step_fn, sh = build_sharded_train(model, mesh, tc, {
+            "tokens": torch.empty((batch, seq), dtype=torch.int64,
+                                  device="meta")})
+        opt = sh["optd"]
     params = init_params(model, torch.Generator(device=device).manual_seed(0))
     plist = list(params.parameters())
     opt_state = opt.init(plist)
     ef_state = init_error_feedback(plist) if tc.grad_compress else None
+    if mesh is not None:
+        params, opt_state, ef_state = sh["place"](params, opt_state,
+                                                  ef_state)
 
     ckpt = (CheckpointManager(tc.checkpoint_dir)
             if tc.checkpoint_dir else None)
@@ -188,7 +268,7 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-compress", choices=["int8", "topk"], default=None)
     ap.add_argument("--zero1", action="store_true",
                     help="shard the optimizer state over data-parallel "
-                         "ranks; changes nothing on one device")
+                         "ranks")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -201,8 +281,15 @@ def main(argv=None) -> None:
     tc = TrainConfig(steps=args.steps, lr=args.lr,
                      grad_compress=args.grad_compress, zero1=args.zero1,
                      checkpoint_dir=args.checkpoint_dir)
-    train(args.arch, tc, batch=args.batch, seq=args.seq,
-          reduced=args.reduced, resume=args.resume, device=args.device)
+    started = not torch.distributed.is_initialized()
+    mesh = make_host_mesh(torch.device(args.device).type)
+    try:
+        train(args.arch, tc, batch=args.batch, seq=args.seq,
+              reduced=args.reduced, resume=args.resume, device=args.device,
+              mesh=mesh)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,8 +21,21 @@ the encoder's (k, v).  ``cfg.remat`` (set in every full-size config) runs
 each layer of a training forward under non-reentrant
 ``torch.utils.checkpoint``, as the reference wraps its scan body in
 ``jax.checkpoint``: no value changes, a layer's activations are recomputed
-in the backward pass instead of kept.  The reference's sharding hints
-(``constrain``, a no-op without a mesh) have no counterpart here.
+in the backward pass instead of kept.  The reference's sharding hints sit
+at the same three places (``distributed.sharding.constrain``: the logits,
+and the residual stream entering the backbone and each segment); each is
+the identity on plain tensors and redistributes a DTensor (the model runs
+on DTensors inside ``distributed.sharding.mesh_context``).  Under a mesh
+the port also
+constrains each block's input to the residual stream's layout: DTensor
+propagates layouts op by op and, left alone, would leave the stream sharded
+over ``model`` as well (a reduce-scatter after a row-parallel product),
+whose later ``einsum`` flattenings ``aten.bmm`` cannot shard; GSPMD
+chooses the layouts inside the reference's scanned layer itself.  A block's
+weights (and the head's) are gathered over the data axes before it runs,
+as FSDP does: left to choose, DTensor may instead contract a product over
+a data-sharded dim and carry partial sums on into ops that cannot take
+them.
 """
 from __future__ import annotations
 
@@ -33,9 +46,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.arch import ArchConfig
+from repro_torch.distributed.sharding import (constrain, gathered,
+                                              local_shard, take_rows)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import rglru_block
@@ -310,7 +326,13 @@ def _run_layer(seg: Segment, layer_params, h, cfg: ArchConfig, *,
     for i, kind in enumerate(seg.pattern):
         key = f"b{i}_{kind}"
         st = None if layer_states is None else layer_states.get(key)
-        h, out = _apply_block(kind, h, layer_params[key], cfg,
+        # each block's input in the residual stream's layout, and its
+        # weights gathered over the data axes (FSDP; see module docstring)
+        h = constrain(h, ("pod", "data"), None, None)
+        bp = layer_params[key]
+        if isinstance(h, DTensor):
+            bp = {n: gathered(w) for n, w in bp.items()}
+        h, out = _apply_block(kind, h, bp, cfg,
                               mode=mode, state=st,
                               cache_index=cache_index, enc_out=enc_out)
         if kind == "moe":
@@ -358,17 +380,21 @@ def _run_segment(seg: Segment, seg_params, h, cfg: ArchConfig, *,
 
 
 def _embed_tokens(cfg: ArchConfig, params: LMParams, tokens):
-    h = params.embed[tokens].to(DTYPES[cfg.dtype])
+    h = take_rows(params.embed, tokens).to(DTYPES[cfg.dtype])
     # sqrt(d_model) in float32, cast to the model's type first
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
     return h * scale.to(h.dtype)
 
 
 def _logits(cfg: ArchConfig, params: LMParams, h):
+    # the head's input in the residual stream's layout, as each block's is
+    h = constrain(h, ("pod", "data"), None, None)
     h = L.rmsnorm(h, params.final_ln)
     if cfg.tie_embeddings:
-        return h @ params.embed.T
-    return h @ params.head
+        logits = h @ gathered(params.embed).T
+    else:
+        logits = h @ gathered(params.head)
+    return constrain(logits, ("pod", "data"), None, "model")
 
 
 def _encode(cfg: ArchConfig, model: Model, params: LMParams, frames):
@@ -384,6 +410,7 @@ def _backbone(cfg, model, params, h, *, mode, states=None, cache_index=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for si, (seg, sp) in enumerate(zip(model.segments, params.segments)):
         st = None if states is None else states[si]
+        h = constrain(h, ("pod", "data"), None, None)
         h, new_st, aux = _run_segment(
             seg, sp, h, cfg, mode=mode, states=st, cache_index=cache_index,
             enc_out=enc_out)
@@ -404,6 +431,22 @@ def _inputs(cfg: ArchConfig, model: Model, params: LMParams, batch):
     return h, enc_out
 
 
+def _take_targets(logp, tgt):
+    """``logp``'s entry at each target (``gather`` on the last dim).  On
+    DTensors it runs on each rank's batch shard: DTensor's ``gather``
+    backward would make a zero tensor of the whole of ``logp`` on every
+    rank."""
+    if not isinstance(logp, DTensor):
+        return torch.gather(logp, -1, tgt[..., None])
+    mesh = logp.device_mesh
+    want = [p if p == Shard(0) else Replicate() for p in logp.placements]
+    out = torch.gather(local_shard(logp.redistribute(mesh, want)), -1,
+                       tgt.redistribute(mesh, want).to_local()[..., None])
+    shape = (*tgt.shape, 1)
+    return DTensor.from_local(out, mesh, want, run_check=False, shape=shape,
+                              stride=(shape[1], 1, 1))
+
+
 def train_loss(model: Model, params: LMParams,
                batch: Dict[str, torch.Tensor], aux_weight: float = 0.01
                ) -> Tuple[torch.Tensor, Dict]:
@@ -414,13 +457,14 @@ def train_loss(model: Model, params: LMParams,
     tokens = batch["tokens"]
     n_text = tokens.shape[1]
     h, enc_out = _inputs(cfg, model, params, batch)
+    h = constrain(h, ("pod", "data"), None, None)
     h, _, aux = _backbone(cfg, model, params, h, mode="train",
                           enc_out=enc_out)
     h = h[:, -n_text:]
     logits = _logits(cfg, params, h)
     logp = torch.log_softmax(logits.float(), dim=-1)
     tgt = tokens[:, 1:].long()
-    nll = -torch.gather(logp[:, :-1], -1, tgt[..., None])
+    nll = -_take_targets(logp[:, :-1], tgt)
     loss = nll.mean() + aux_weight * aux
     return loss, {"nll": nll.mean(), "aux": aux}
 

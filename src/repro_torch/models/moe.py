@@ -6,6 +6,11 @@ groups, one-hot einsum dispatch within each group), ``einsum`` (one global
 one-hot einsum) and ``scatter`` (slot buffers filled by index-add), and the
 Switch-style load-balancing auxiliary loss.
 
+Under a mesh the dispatch and combine products, and the scatter
+dispatch's slot writes and reads, run shard by shard
+(``distributed.sharding.einsum``, ``scatter_rows``, ``take_rows``); on
+plain tensors they are ``torch.einsum``, ``index_add`` and indexing.
+
 Top-k selection breaks ties as ``jax.lax.top_k`` does, lower expert index
 first: :func:`_top_k` takes the first k of a stable descending sort
 (``torch.topk`` leaves the order of equal values open).
@@ -16,7 +21,11 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import einsum as shard_einsum
+from repro_torch.distributed.sharding import (keep_shards, scatter_rows,
+                                              take_rows)
 from repro_torch.models.layers import rmsnorm
 
 
@@ -86,11 +95,11 @@ def moe_block(x: torch.Tensor, p: Dict, *, n_experts: int, top_k: int,
         disp = disp[..., :cap]                       # (G,Tg,K,E,C)
         dispatch_t = disp.sum(2)                     # (G,Tg,E,C)
         combine_t = (disp * gv[..., None, None].to(ht.dtype)).sum(2)
-        xe = torch.einsum("gtd,gtec->gecd", hg, dispatch_t)   # (G,E,C,D)
+        xe = shard_einsum("gtd,gtec->gecd", hg, dispatch_t)   # (G,E,C,D)
         xe = xe.permute(1, 0, 2, 3).reshape(n_experts, g * cap, d)
         ye = _experts(xe, p)
         ye = ye.reshape(n_experts, g, cap, d).permute(1, 0, 2, 3)
-        y = torch.einsum("gecd,gtec->gtd", ye, combine_t).reshape(b, s, d)
+        y = shard_einsum("gecd,gtec->gtd", ye, combine_t).reshape(b, s, d)
 
     elif dispatch == "einsum":
         cap = max(int(capacity_factor * n_tokens * top_k / n_experts), 4)
@@ -102,9 +111,9 @@ def moe_block(x: torch.Tensor, p: Dict, *, n_experts: int, top_k: int,
         disp = disp[..., :cap]                                  # (T,K,E,C)
         dispatch_t = disp.sum(1)
         combine_t = (disp * gate_vals[..., None, None].to(ht.dtype)).sum(1)
-        xe = torch.einsum("td,tec->ecd", ht, dispatch_t)
+        xe = shard_einsum("td,tec->ecd", ht, dispatch_t)
         ye = _experts(xe, p)
-        y = torch.einsum("ecd,tec->td", ye, combine_t).reshape(b, s, d)
+        y = shard_einsum("ecd,tec->td", ye, combine_t).reshape(b, s, d)
 
     elif dispatch == "scatter":
         cap = max(int(capacity_factor * n_tokens * top_k / n_experts), 4)
@@ -113,15 +122,25 @@ def moe_block(x: torch.Tensor, p: Dict, *, n_experts: int, top_k: int,
         n_slots = n_experts * cap
         slot = torch.where(keep, gate_idx * cap + pos,
                            torch.full_like(gate_idx, n_slots))  # (T, K)
-        xe_flat = ht.new_zeros((n_slots + 1, d))
-        for k in range(top_k):
-            xe_flat = xe_flat.index_add(0, slot[:, k], ht)
+        xe_flat = scatter_rows(n_slots + 1, slot, ht, top_k)
         xe = xe_flat[:n_slots].reshape(n_experts, cap, d)
+        if isinstance(xe, DTensor):
+            # the slots whole (their partial sums reduced): the experts'
+            # products then shard the expert dim as the weights do, and no
+            # gradient reaches the reshape flattened over two axes
+            xe = keep_shards(xe, ())
         ye = _experts(xe, p)
-        ye_flat = torch.cat([ye.reshape(n_slots, d), ye.new_zeros((1, d))])
+        if isinstance(ye, DTensor):
+            # the experts' rows as their weights shard them; a dropped
+            # token's slot (n_slots) lies past every shard and takes zeros
+            ye_flat = keep_shards(ye, (0,)).reshape(n_slots, d)
+        else:
+            ye_flat = torch.cat([ye.reshape(n_slots, d),
+                                 ye.new_zeros((1, d))])
         y = torch.zeros_like(ht)
         for k in range(top_k):
-            y = y + ye_flat[slot[:, k]] * gate_vals[:, k, None].to(ht.dtype)
+            y = y + take_rows(ye_flat, slot[:, k]) * gate_vals[
+                :, k, None].to(ht.dtype)
         y = y.reshape(b, s, d)
     else:
         raise ValueError(f"unknown moe dispatch {dispatch!r}")

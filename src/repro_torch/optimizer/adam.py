@@ -13,8 +13,8 @@ and its moments follow one step later (from float32 gradients); the
 clipping scale, when a float32 gradient makes it float32, promotes every
 gradient with it; a Python number meets a bf16 tensor as a bf16 number.  A
 tensor whose type holds is updated in place; one whose type changes is
-replaced (a parameter's ``.data`` is rebound, a moment is a new tensor in
-the returned state).
+replaced (a parameter's ``.data`` is rebound, ``distributed.sharding.
+set_data``, a moment is a new tensor in the returned state).
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ import dataclasses
 from typing import List, NamedTuple, Sequence
 
 import torch
+
+from repro_torch.distributed.sharding import set_data
 
 
 class AdamWState(NamedTuple):
@@ -74,7 +76,7 @@ class AdamW:
             if torch.promote_types(p.dtype, delta.dtype) == p.dtype:
                 p.sub_(lr * delta)
             else:
-                p.data = p - lr * delta
+                set_data(p, p - lr * delta)
         return AdamWState(step=step, mu=mu, nu=nu)
 
 

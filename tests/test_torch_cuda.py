@@ -1310,3 +1310,56 @@ def test_two_processes_train_one_key_once(device, tmp_path):
             trained.append(json.load(f)["trained"])
     assert sorted(trained) == [False, True]
     np.testing.assert_array_equal(np.load(outs[0]), np.load(outs[1]))
+
+
+# ---------------------------------------------------------------------------
+# K4's registered op (repro_torch::flash_attention): the launch it makes on
+# real tensors, its fake implementation, and its FLOP formula
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,extra", [((8, 32, 8, 512, 512, 128), 0),
+                                         ((8, 32, 8, 1, 575, 128), 1),
+                                         ((2, 4, 4, 30, 30, 16), 0)])
+def test_k4_registered_op_matches_the_direct_launch(device, shape, extra):
+    """On real CUDA tensors the op launches K4 once and equals the direct
+    call bit for bit (k and v a cache view where ``extra`` > 0)."""
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    b, h, hkv, sq, sk, d = shape
+    g = torch.Generator(device=device).manual_seed(sq)
+    dtype = torch.bfloat16 if d == 128 else torch.float32
+    q = torch.randn((b, h, sq, d), generator=g, device=device, dtype=dtype)
+    ck = torch.randn((b, hkv, sk + extra, d), generator=g, device=device,
+                     dtype=dtype)
+    cv = torch.randn((b, hkv, sk + extra, d), generator=g, device=device,
+                     dtype=dtype)
+    k, v = ck[:, :, :sk], cv[:, :, :sk]
+    causal = sq > 1 or extra > 0
+    launches = flash_attention.launches
+    got = flash_attention_op(q, k, v, causal)
+    assert flash_attention.launches == launches + 1
+    want = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == launches + 2
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and torch.equal(got, want)
+
+
+def test_k4_registered_op_on_cuda_fakes_launches_nothing(device):
+    """On fake CUDA tensors the op gives the output's shape and type, counts
+    K4's formula in ``torch.utils.flop_counter`` and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.flash_attention import (flash_attention_cost,
+                                                     flash_attention_op)
+    launches = flash_attention.launches
+    with FakeTensorMode():
+        q = torch.empty((8, 32, 512, 128), dtype=torch.bfloat16,
+                        device=device)
+        k = torch.empty((8, 8, 512, 128), dtype=torch.bfloat16,
+                        device=device)
+        with FlopCounterMode(display=False) as fc:
+            out = flash_attention_op(q, k, k, True)
+    assert flash_attention.launches == launches
+    assert tuple(out.shape) == (8, 32, 512, 128)
+    assert out.dtype == torch.bfloat16 and out.device.type == "cuda"
+    assert fc.get_total_flops() == flash_attention_cost(
+        q.shape, k.shape, True, 2)[0]

@@ -47,7 +47,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert res.returncode == 0, res.stderr[-4000:]
     # every module of the port was imported, not a vacuous package
     names, count = res.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 82
+    assert int(count) >= 88
     assert {"repro_torch.uvm.scenarios", "repro_torch.uvm.paper_tables",
             "repro_torch.uvm.engine", "repro_torch.uvm.backends.numpy_backend",
             "repro_torch.uvm.backends.legacy_backend",
@@ -67,7 +67,11 @@ def test_port_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.data", "repro_torch.data.lm_pipeline",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-            "repro_torch.optimizer.grad_compress"} <= set(names.split())
+            "repro_torch.optimizer.grad_compress",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.launch.roofline",
+            "repro_torch.launch.report"} <= set(names.split())
 
 
 _FORBIDDEN = re.compile(
