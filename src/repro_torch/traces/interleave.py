@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.traces.trace import ROOT_PAGES, Trace, concat_streams
 
 #: separator of a multi-tenant bench name ("ATAX+Pathfinder")
@@ -185,6 +186,7 @@ def tenant_last_index(trace: Trace) -> Optional[Tuple[int, int]]:
     stream = tenant_stream(trace)
     if stream is None:
         return None
+    spans.count("sweep.trace_scans")
     out = []
     for t in range(N_TENANTS):
         idx = np.nonzero(stream == t)[0]
@@ -199,6 +201,7 @@ def mt_component_trace(trace: Trace, tenant: int) -> Trace:
     stream = tenant_stream(trace)
     if stream is None:
         raise ValueError(f"{trace.name!r} is not a multi-tenant trace")
+    spans.count("sweep.trace_scans")
     mt = mt_meta(trace)
     mask = stream == tenant
     prefix = f"t{tenant}/"

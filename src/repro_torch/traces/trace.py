@@ -13,6 +13,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch import spans
+
 PAGE_SIZE = 4096                 # bytes per page (paper Table 9)
 BASIC_BLOCK_PAGES = 16           # 64 KB prefetch unit
 ROOT_PAGES = 512                 # 2 MB tree root
@@ -54,6 +56,7 @@ class Trace:
 
     @property
     def working_set_pages(self) -> int:
+        spans.count("sweep.trace_scans")
         return int(np.unique(self.accesses["page"]).size)
 
     def split(self, frac: float) -> "tuple[Trace, Trace]":

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.lane_replay import (MAX_LANE_STEPS,
                                              MAX_ORACLE_LOOKAHEAD,
                                              N_FPARAMS, N_IPARAMS,
@@ -189,6 +190,7 @@ class LaneBatch:
     #: a lane of the batch has per-tenant quotas
     quotas: bool = False
 
+    @spans.spanned("cuda_backend.to_device")
     def kernel_args(self, device) -> Dict:
         """Keyword arguments of :func:`lane_replay` on ``device``."""
         dev = torch.device(device)
@@ -226,6 +228,7 @@ class CudaReplayBackend(ReplayBackend):
                 and n * sp <= MAX_BATCH_STATE_PAGES
                 and n * t <= MAX_BATCH_ACCESSES)
 
+    @spans.spanned("cuda_backend.pack_lanes")
     def pack_lanes(self, requests: Sequence[ReplayRequest]
                    ) -> List[List[int]]:
         """Group request indices into homogeneous lane batches: sorted by
@@ -268,6 +271,7 @@ class CudaReplayBackend(ReplayBackend):
                 out[i] = stats
         return out
 
+    @spans.spanned("cuda_backend.pack_batch")
     def pack_batch(self, requests: Sequence[ReplayRequest]) -> LaneBatch:
         """The kernel inputs of one homogeneous lane batch."""
         families = {lane_family(r.prefetcher) for r in requests}
@@ -362,14 +366,39 @@ class CudaReplayBackend(ReplayBackend):
 
     def _replay_batch(self, requests: Sequence[ReplayRequest]
                       ) -> List[UVMStats]:
-        """Replay one homogeneous lane batch: pack, launch, unpack."""
+        """Replay one homogeneous lane batch: pack, launch, unpack.  While
+        a pass is traced on the card, K1 also writes each lane's chunk
+        scans and nanoseconds (``lane_info``), which go to the pass's
+        ``k1.lane_*`` counters (padding lanes left out)."""
         batch = self.pack_batch(requests)
-        raw = lane_replay(**batch.kernel_args(self.device))
+        args = batch.kernel_args(self.device)
+        info = None
+        if spans.on() and args["pages"].is_cuda:
+            info = torch.zeros((len(batch.pages), 2), dtype=torch.int64,
+                               device=args["pages"].device)
+            args["lane_info"] = info
+        raw = lane_replay(**args)
         raw_steps = None
-        if batch.steps_len:
-            raw, raw_steps = raw
-            raw_steps = raw_steps.cpu().numpy()
-        raw = raw.cpu().numpy()
+        with spans.span("cuda_backend.readback"):
+            if batch.steps_len:
+                raw, raw_steps = raw
+                raw_steps = raw_steps.cpu().numpy()
+            raw = raw.cpu().numpy()
+            if info is not None:
+                info = info[:len(requests)].cpu().numpy()
+        if info is not None:
+            spans.count("k1.lane_accesses",
+                        sum(len(r.trace.pages) for r in requests))
+            spans.count("k1.lane_scans", int(info[:, 0].sum()))
+            spans.count("k1.lane_ns_sum", int(info[:, 1].sum()))
+            spans.count("k1.lane_ns_longest_x_lanes",
+                        int(info[:, 1].max()) * len(requests))
+        return self._unpack(requests, raw, raw_steps)
+
+    @spans.spanned("cuda_backend.unpack")
+    def _unpack(self, requests: Sequence[ReplayRequest], raw: np.ndarray,
+                raw_steps: Optional[np.ndarray]) -> List[UVMStats]:
+        """K1's stats (and window clocks) -> one ``UVMStats`` a lane."""
         out = []
         for lane, req in enumerate(requests):
             row = raw[lane]

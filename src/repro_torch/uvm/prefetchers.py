@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.traces.trace import BASIC_BLOCK_PAGES, ROOT_PAGES
 
 
@@ -197,6 +198,7 @@ class OraclePrefetcher(Prefetcher):
     def __init__(self, future_pages: np.ndarray, lookahead: int = 96) -> None:
         self.lookahead = lookahead
         # first-touch order of pages + the access index of each first touch
+        spans.count("sweep.trace_scans")
         pages = np.asarray(future_pages)
         _, first_idx = np.unique(pages, return_index=True)
         order = np.sort(first_idx)

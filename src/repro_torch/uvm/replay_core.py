@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.traces.trace import BASIC_BLOCK_PAGES, ROOT_PAGES, Trace
 from repro_torch.uvm.config import UVMConfig
 from repro_torch.uvm.eviction import (eviction_score, resolve_tenancy,
@@ -224,6 +225,7 @@ def dense_bounds(trace: Trace, prefetcher: Prefetcher) -> Tuple[int, int]:
     (aligned so block/tree extras always fall inside the span)."""
     pages = trace.pages
     if len(pages):
+        spans.count("sweep.trace_scans")
         lo, hi = int(pages.min()), int(pages.max())
     else:
         lo, hi = 0, 0

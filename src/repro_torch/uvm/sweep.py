@@ -111,7 +111,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.families import MODEL_FAMILIES
-from repro_torch import kernels
+from repro_torch import kernels, spans
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.traces.trace import ACCESS_DTYPE, Trace
 from repro_torch.uvm import adaptive, faults
@@ -459,6 +459,7 @@ def make_prefetcher(cell: SweepCell, trace: Trace, config: UVMConfig,
     return _PREFETCHER_TYPES[cell.prefetcher]()
 
 
+@spans.spanned("sweep.prepare_cell.working_set")
 def _trace_and_capacity(cell: SweepCell, cache_dir: Optional[str] = None
                         ) -> Tuple[Trace, Optional[int]]:
     trace = load_trace(cell.bench, cell.scale, cell.seed, cell.window,
@@ -469,6 +470,7 @@ def _trace_and_capacity(cell: SweepCell, cache_dir: Optional[str] = None
     return trace, device_pages
 
 
+@spans.spanned("sweep.resolve_evictions")
 def resolve_evictions(cells: Sequence[SweepCell], device: str = "cuda",
                       cache_dir: Optional[str] = None) -> List[str]:
     """Each cell's concrete eviction policy; the probes of every adaptive
@@ -478,6 +480,7 @@ def resolve_evictions(cells: Sequence[SweepCell], device: str = "cuda",
           cell.prefetcher) for cell in cells], device=device)
 
 
+@spans.spanned("sweep.prepare_cell")
 def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
                  device: str = "cuda",
                  timings: Optional[Dict[str, float]] = None):
@@ -487,10 +490,10 @@ def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
     column (from the stats) records what ran."""
     check_cell(cell)
     trace, device_pages = _trace_and_capacity(cell, cache_dir)
-    eviction = adaptive.resolve_eviction(cell.eviction, cell.bench, trace,
-                                         device_pages,
-                                         prefetcher=cell.prefetcher,
-                                         device=device)
+    with spans.span("sweep.prepare_cell.eviction"):
+        eviction = adaptive.resolve_eviction(
+            cell.eviction, cell.bench, trace, device_pages,
+            prefetcher=cell.prefetcher, device=device)
     fracs = parse_capacity_split(cell.capacity_split)
     tenant_pages = None
     if fracs is not None:
@@ -504,8 +507,9 @@ def prepare_cell(cell: SweepCell, *, cache_dir: Optional[str] = None,
     config = UVMConfig(prediction_overhead_us=cell.prediction_us,
                        device_pages=device_pages, eviction=eviction,
                        tenant_pages=tenant_pages)
-    prefetcher = make_prefetcher(cell, trace, config, cache_dir, device,
-                                 timings)
+    with spans.span("sweep.prepare_cell.prefetcher"):
+        prefetcher = make_prefetcher(cell, trace, config, cache_dir, device,
+                                     timings)
     return trace, config, prefetcher, device_pages
 
 
@@ -635,6 +639,7 @@ def _solo_key(cell: SweepCell, tenant: int, capacity: Optional[int],
             cell.service_steps)
 
 
+@spans.spanned("sweep._solo_requests")
 def _solo_requests(cells: Sequence[SweepCell], prepared: Sequence[Tuple],
                    timings: Sequence[Dict[str, float]],
                    cache_dir: Optional[str], device: str
@@ -653,7 +658,8 @@ def _solo_requests(cells: Sequence[SweepCell], prepared: Sequence[Tuple],
     for cell, (trace, config, _, device_pages), tm in zip(cells, prepared,
                                                           timings):
         uses.append([])
-        last = tenant_last_index(trace)
+        with spans.span("sweep._solo_requests.component"):
+            last = tenant_last_index(trace)
         if last is None:
             continue
         for t, li in enumerate(last):
@@ -665,8 +671,9 @@ def _solo_requests(cells: Sequence[SweepCell], prepared: Sequence[Tuple],
                 continue
             solo = components.get((id(trace), t))
             if solo is None:
-                solo = components[(id(trace), t)] = mt_component_trace(
-                    trace, t)
+                with spans.span("sweep._solo_requests.component"):
+                    solo = components[(id(trace), t)] = mt_component_trace(
+                        trace, t)
             cfg = UVMConfig(prediction_overhead_us=cell.prediction_us,
                             device_pages=capacity, eviction=config.eviction)
             solo_tm: Dict[str, float] = {}
@@ -779,6 +786,7 @@ def _run_cells(cells: Sequence[SweepCell], *, cache_dir: Optional[str],
     users = collections.Counter(key for keys in uses for key in keys)
     rows: Dict[int, Dict] = {}
 
+    @spans.spanned("sweep.finish_rows")
     def emit_ready() -> None:
         for j, (cell, (trace, config, _, device_pages)) in enumerate(
                 zip(cells, prepared)):
@@ -834,6 +842,7 @@ def _run_cells(cells: Sequence[SweepCell], *, cache_dir: Optional[str],
     return {pos[j]: row for j, row in rows.items()}
 
 
+@spans.records_pass
 def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
               workers: int = 1, resume: bool = True,
               cache_dir: Optional[str] = None, device: str = "cuda",
@@ -868,7 +877,11 @@ def run_sweep(cells: Sequence[SweepCell], *, out_dir: Optional[str] = None,
     ``train_seconds`` and ``predict_seconds`` (0.0 where the predictions
     came from the cache).  ``record_timeline`` asks every replay for its
     per-transfer timeline (K1 records none, so such cells take the NumPy
-    engine) and puts it into the row as ``timeline``."""
+    engine) and puts it into the row as ``timeline``.
+
+    A call made while a ``torch.profiler`` records is traced whole and
+    leaves one pass record of its spans and counters
+    (``repro_torch.spans``)."""
     for cell in cells:
         check_cell(cell)
     if cache_dir is None and out_dir is not None:

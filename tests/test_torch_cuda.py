@@ -275,6 +275,54 @@ def test_k1_victim_search_edges_match_its_plain_version(device, case,
     assert (info[:, 0] >= evictions).all() and (info[:3, 1] > 0).all()
 
 
+#: golden tree lanes under lru: three, so the batch has a padding lane
+K1_TRACED_CELLS = ("atax/tree", "oversub/tree", "tree-churn/tree")
+
+
+def test_k1_lane_info_fills_a_traced_pass(device, monkeypatch):
+    """Under a profiler, ``_replay_batch`` hands K1 a ``lane_info`` and
+    counts the real lanes' accesses, chunk scans and nanoseconds into the
+    pass record, the padding lane left out; its stats equal, bit for bit,
+    the untraced replay's, which passes K1 no ``lane_info``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.uvm.backends import cuda_backend
+    assert all(G.golden_cell_policy(c) == "lru" for c in K1_TRACED_CELLS)
+
+    def requests():
+        out = []
+        for cell_id in K1_TRACED_CELLS:
+            trace, cfg, factory = G.golden_cell(cell_id)
+            out.append(ReplayRequest(trace, factory(), cfg))
+        return out
+    infos = []
+    original = cuda_backend.lane_replay
+
+    def spy(**kw):
+        infos.append(kw.get("lane_info"))
+        return original(**kw)
+    monkeypatch.setattr(cuda_backend, "lane_replay", spy)
+    backend = CudaReplayBackend(device)
+    untraced = backend._replay_batch(requests())
+    assert infos == [None]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        traced = spans.records_pass(backend._replay_batch)(requests())
+    info = infos[-1].cpu()
+    assert tuple(info.shape) == (4, 2)
+    scans, ns = info[:3, 0], info[:3, 1]
+    assert (ns > 0).all() and (scans >= 0).all()
+    counters = spans.passes()[-1]["counters"]
+    assert {k: v for k, v in counters.items() if k.startswith("k1.")} == {
+        "k1.lane_accesses": sum(len(r.trace.pages) for r in requests()),
+        "k1.lane_scans": int(scans.sum()), "k1.lane_ns_sum": int(ns.sum()),
+        "k1.lane_ns_longest_x_lanes": int(ns.max()) * 3}
+    for a, b in zip(traced, untraced):
+        assert G.stats_to_dict(a) == G.stats_to_dict(b)
+        assert (a.cycles, a.pcie_bytes) == (b.cycles, b.pcie_bytes)
+
+
 def test_table10_tree_rows_equal_the_legacy_engine(device):
     benches = ("2DCONV", "ATAX")
     rows, _ = paper_tables.run(benches, device=device)
