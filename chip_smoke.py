@@ -633,12 +633,12 @@ def lane_scan_end(batch, lane: int) -> int:
 def k1_lanes(batch):
     """One K1 launch on ``batch`` with its per-lane record: (the stats on
     the host, the slowest lane by the card's global timer: its
-    microseconds, accesses, evictions, victim-search chunk scans and the
-    slots its search covers)."""
-    import torch
+    microseconds, accesses, evictions, victim-search chunk scans, the
+    slots its search covers, its selection rounds and their
+    evictions)."""
     from repro_torch.kernels.lane_replay import lane_replay
-    info = torch.zeros((len(batch.pages), 2), dtype=torch.int64,
-                       device="cuda")
+    from repro_torch.uvm.backends.cuda_backend import lane_info_buffer
+    info = lane_info_buffer(len(batch.pages), "cuda")
     out = lane_replay(**batch.kernel_args("cuda"), lane_info=info)
     out = (out[0] if batch.steps_len else out).cpu()
     info = info.cpu()
@@ -647,13 +647,16 @@ def k1_lanes(batch):
                  "accesses": int(batch.iparams[slow, 0]),
                  "evictions": int(out[slow, 7]),
                  "chunk_scans": int(info[slow, 0]),
-                 "scanned_slots": lane_scan_end(batch, slow)}
+                 "scanned_slots": lane_scan_end(batch, slow),
+                 "rounds": int(info[slow, 2]),
+                 "round_evictions": int(info[slow, 3])}
 
 
 def lane_text(x) -> str:
     return (f"slowest lane {x['us'] / 1e3:.1f} ms: {x['accesses']} "
             f"accesses, {x['evictions']} evictions, {x['chunk_scans']} "
-            f"chunk scans over {x['scanned_slots']} slots")
+            f"chunk scans over {x['scanned_slots']} slots, {x['rounds']} "
+            f"rounds evicting {x['round_evictions']}")
 
 
 def variant_key(batch):

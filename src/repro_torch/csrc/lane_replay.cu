@@ -22,16 +22,22 @@
 //     pages in stream order.  A fault scans twice (batch DMA, then the
 //     continuous scan with the sequential t += page_tx arrival chain), the
 //     second scan after the first's insertions;
-//   * each eviction's victim search (warp 0 alone): the minimum policy key
-//     among resident pages, first index on ties (jnp.argmin's rule) -- lru
-//     the touch stamp, random (prio << 21) | slot with prio the insert-time
-//     uint32 hash draw, hotcold (freq << 32) | stamp with freq the touches
-//     since migration.
+//   * the rest of a long eviction burst: one selection round (below).
+//     Warp 0 alone searches a burst's victims one at a time; once it has
+//     evicted K1_ROUND_MIN of a burst of 2 K1_ROUND_MIN pages or more, none
+//     in flight, the block takes the rest in one round.  A burst that
+//     reaches an in-flight page early -- most bursts after the first of a
+//     tree fault's, whose extras are still on the bus -- ends in a search
+//     or two, and a split quota lane always searches.
+// A victim is the least policy key among resident pages -- lru the touch
+// stamp, random (prio << 21) | slot with prio the insert-time uint32 hash
+// draw, hotcold (freq << 32) | stamp with freq the touches since migration
+// (jnp.argmin's first index on ties; keys never tie, below).
 //
-// The victim search reads a summary, not the span.  The span is cut into
-// chunks of 512 slots (a root window each), and the block keeps in shared
-// memory a lower bound of each chunk's least key over its resident slots.
-// Three facts make the bounds cheap and exact:
+// Both read a summary, not the span.  The span is cut into chunks of 512
+// slots (a root window each), and the block keeps in shared memory a lower
+// bound of each chunk's least key over its resident slots.  Three facts
+// make the bounds cheap and exact:
 //   * a resident page's key only grows until it is evicted: an lru retouch
 //     takes the monotone counter, hotcold adds to freq and takes a new
 //     stamp, random's prio is drawn once at insertion; so only an insertion
@@ -44,27 +50,70 @@
 //     random keys carry the slot, so two resident pages never tie;
 //   * a tenant's slot range [0, bnd) or [bnd, span) is a whole number of
 //     chunks: the tenant boundary is root-aligned (the wrapper checks it).
-// Warp 0 searches, with no block barrier: the other warps wait at the
-// next access's block phase.  A search starts at the chunk the last one
-// ended in.  One warp reduction scans that chunk exactly (16 slots a lane)
-// and finds the least (bound, chunk) among the other chunks of the range;
-// the chunk's bound becomes its exact minimum, and the search stops when
-// that minimum is below every other bound (ties to the lower chunk), else
-// moves to the chunk of the least bound.  The victim is then the exact
-// minimum key of the range, as a scan of every slot gives it.  A search
-// costs a few warp reductions, whatever the span; a chunk's slots are read
-// once more after each retouch burst or eviction in it.
+//
+// The selection round.  An access that leaves the lane k pages over its
+// capacity evicts, one at a time, the least key among resident pages until
+// k are gone or the least is still in flight (arrival > clock), which is
+// retouched and ends the burst.  Within the burst no resident key changes
+// (an eviction only removes a page; the one retouch ends it) and the clock
+// is fixed, so the victims are the k least keys of the lane's slots
+// [0, scan_end), in ascending order, up to the first in flight.  The round
+// takes them at once, the whole block over the chunks:
+//   1. selection: a radix select finds the least H with exactly k resident
+//      keys <= H.  Each pass counts the keys of the current interval into
+//      1,024 bins of a shared histogram (warp-aggregated adds): the first
+//      pass in logarithmic bins above the least chunk bound (16 a power of
+//      two), the next ones linear bins of the chosen bin, until the k-th
+//      key closes its bin or a bin holds one key value.  The first pass
+//      reads every chunk that holds a page and leaves its bound exact; a
+//      later pass reads only the chunks whose bound is at most the
+//      interval's top;
+//   2. stop: the first pass reads every key and also takes F, the least
+//      key in flight; F <= H stops the burst at J = F.  Where F's bin lies
+//      below the k-th key's, the select ends there, with H = F;
+//   3. eviction: every resident key below J and <= H is evicted in
+//      parallel, one thread a slot (arrival +inf, pfu 0, the tree's node
+//      counts decremented); the page of key J, if any, is retouched as the
+//      warp search retouches; the chunk bounds rise to J (or H + 1), a
+//      lower bound of every key left;
+//   4. thread 0 keeps the serial tail: resident and evicted, and one
+//      pcie_free += page_tx for every second eviction, in order, so the
+//      writebacks round as one eviction at a time rounds them.
+// Only the order of the keys and the count of evictions reach the results,
+// so a round is bit for bit the searches it replaces.  A split quota lane
+// switches its tenant range in the middle of a burst, and keeps the search.
+// A round costs some 45 us over a 48-chunk lane, a search about 1 us.  A
+// burst either runs to a tree fault's hundreds of pages or stops at an
+// in-flight page within a search or two, so the few searches first cost
+// little and spare the rounds that would evict nothing (K1_ROUND_MIN).
+// Tree and oracle lanes run every access through a block phase, and all
+// their threads read the burst there (thread 0 publishes its resident count
+// by access parity before the phase's barrier); demand and learned lanes
+// park warps 1-15 at a barrier, and warp 0 calls them to a round.
+//
+// The warp search, with no block barrier: a search starts at the chunk the
+// last one ended in.  One warp reduction scans that chunk exactly (16 slots
+// a lane) and finds the least (bound, chunk) among the other chunks of the
+// range; the chunk's bound becomes its exact minimum, and the search stops
+// when that minimum is below every other bound (ties to the lower chunk),
+// else moves to the chunk of the least bound.  The victim is then the exact
+// minimum key of the range, as a scan of every slot gives it.
 //
 // Bound: latency.  Each access depends on the clock and the page state the
 // previous one left, so a lane is one long dependent chain; the bytes moved
 // and the operations are tiny next to its length.  Lanes run concurrently on
-// separate SMs; the window classify and the prefix counts are the block's
-// parallel work, each a few barriers long, and the victim search warp 0's.
+// separate SMs, and a batch lasts as long as its longest lane: its accesses
+// (thread 0's chain, with a tree fault's or an oracle access's block phase,
+// a few barriers each) plus its bursts: a search each for the first
+// victims, then a round of a few passes over the chunks that hold
+// candidates, some 10-15 barriers in all; before the round, a burst of k
+// pages took k dependent warp searches.
 // Family, policy and the quota eviction are template parameters, so each
 // kernel carries only its own branches; step capture is one predicated
 // store per access, taken when the wrapper passes a window-clock buffer.
-// Where the wrapper passes a lane_info buffer, thread 0 writes each lane's
-// chunk scans and its nanoseconds on the global timer there.
+// Where the wrapper passes a lane_info buffer, thread 0 writes there each
+// lane's warp-search chunk scans, its nanoseconds on the global timer, its
+// rounds and the evictions its rounds made.
 //
 // Step clocks: each access carries its window id (sids); thread 0 stores the
 // clock after the MSHR trim -- final for the access, eviction never moves
@@ -98,7 +147,7 @@
 // buffer of buf_len = mshr + 1 f64, and the steps_len + 1 f64 window clocks.
 // Oracle lanes carry one more state slot, the trash slot at index span:
 // padded first-touch entries point there, it reads resident and is never a
-// victim.
+// victim (scan_end stops every search and round short of it).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -115,6 +164,19 @@
 #define ORACLE_MAX_EXTRAS 16
 #define IMAX 0x7fffffff
 #define FULL 0xffffffffu
+#define N_LANE_INFO 4   // warp-search chunk scans, ns, rounds, round evictions
+// The victims a burst takes by the warp search before a round takes the
+// rest (a burst of 2 K1_ROUND_MIN pages or more, none in flight so far).
+// K1's device time over one pass of the benchmark's paper11.oversub cell
+// on an H100 (700 W; 2,782.5 ms before rounds), by this constant: 2:
+// 1,166.9 ms, 3: 1,151.3, 4: 1,152.9, 8: 1,167.4, 16: 1,199.8.  Bursts
+// are of two kinds: a tree fault's runs to hundreds of pages, where a
+// round (some 40 us over Srad-v2's 48 chunks) replaces ~1 us searches;
+// most later ones stop at an in-flight page within a search or two.
+#define K1_ROUND_MIN 4
+#define ROUND_BINS (2 * THREADS)   // the round's histogram, two bins a thread
+#define ROUND_PASSES 8             // one logarithmic pass + linear ones of 10
+                                   // bits each cover a 64-bit key
 
 enum { FAM_DEMAND = 0, FAM_TREE = 1, FAM_LEARNED = 2, FAM_ORACLE = 3 };
 enum { POL_LRU = 0, POL_RANDOM = 1, POL_HOTCOLD = 2 };
@@ -195,7 +257,285 @@ struct Shared {
   double clock, pcie_free;
   int counter, p, fault;
   int ev_lo, ev_hi;   // slot range of the current victim search
+  int res[2];         // tree, oracle: thread 0's resident count, by access
+                      // parity, before the access's block phase
+  int burst;          // the rest of a burst that a round evicts (demand,
+                      // learned: 0 releases the parked warps)
 };
+
+// A block barrier that warps may reach from different instructions (warp
+// 0 calls the parked warps to a round from its access loop): the
+// non-.aligned form of __syncthreads, with its memory ordering.
+__device__ __forceinline__ void block_sync() {
+  asm volatile("barrier.sync 0;" ::: "memory");
+}
+
+// The warp's least v, in every lane.
+__device__ __forceinline__ u64 warp_min(u64 v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const u64 o = __shfl_xor_sync(FULL, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+// The block's least v, in every thread (two barriers).
+__device__ __forceinline__ u64 block_min(u64 v, u64* s_least) {
+  v = warp_min(v);
+  if ((threadIdx.x & 31) == 0) s_least[threadIdx.x >> 5] = v;
+  block_sync();
+  u64 m = ~0ULL;
+  for (int w = 0; w < NWARPS; ++w) m = s_least[w] < m ? s_least[w] : m;
+  block_sync();
+  return m;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// The round's bin of d = key - lo: logarithmic (d itself below 64, then 16
+// bins a power of two) or linear (d >> shift); both rise with d.
+__device__ __forceinline__ int round_bin(u64 d, bool log_bins, int shift) {
+  if (!log_bins) return (int)(d >> shift);
+  if (d < 64) return (int)d;
+  const int e = 63 - __clzll((long long)d);
+  return 64 + (e - 6) * 16 + (int)((d >> (e - 4)) & 15);
+}
+
+// Visit every slot of the chunks of [0, scan_end) whose bound is at most
+// hi (a chunk a warp, 16 slots a lane, the loads of 8 slots in flight at
+// once): f(slot, arrival, key), with arrival +inf past scan_end.  Every
+// lane of the warp calls f together.  With exact, each visited chunk's
+// bound becomes its least resident key (~0 for none): a chunk is one
+// warp's alone in a visit.
+template <int POLICY, bool EXACT = false, typename F>
+__device__ __forceinline__ void visit_chunks(
+    const double* arrival, const int* stamp, const int* freq,
+    const unsigned* prio, u64* bound, int scan_end, u64 hi, F f) {
+  const double INF = __longlong_as_double(0x7ff0000000000000LL);
+  const int wl = threadIdx.x & 31;
+  const int n_c = (scan_end + ROOT_PAGES - 1) / ROOT_PAGES;
+  for (int c = threadIdx.x >> 5; c < n_c; c += NWARPS) {
+    const u64 b = bound[c];
+    if (b == ~0ULL || b > hi) continue;   // nothing resident, or above hi
+    u64 least = ~0ULL;
+    for (int r0 = 0; r0 < ROOT_PAGES / 32; r0 += 8) {
+      double a[8];
+      u64 key[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = c * ROOT_PAGES + (r0 + j) * 32 + wl;
+        a[j] = INF;
+        key[j] = ~0ULL;
+        if (i < scan_end) {
+          a[j] = arrival[i];
+          key[j] = victim_key<POLICY>(i, stamp[i],
+                                      POLICY == POL_HOTCOLD ? freq[i] : 0,
+                                      POLICY == POL_RANDOM ? prio[i] : 0u);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (EXACT && a[j] < INF && key[j] < least) least = key[j];
+        f(c * ROOT_PAGES + (r0 + j) * 32 + wl, a[j], key[j]);
+      }
+    }
+    if (EXACT) {
+      least = warp_min(least);
+      if (wl == 0) bound[c] = least;
+    }
+  }
+}
+
+// One selection round (the design note's steps 1-3), by every thread of
+// the block: evict the k least keys of the lane's resident slots of
+// [0, scan_end), in ascending order, up to the first in flight at thread
+// 0's clock, which takes thread 0's counter as its stamp.  Returns, in
+// every thread, the evictions; *evicted0 gets those of tenant 0 (slots
+// below bnd), *retouched whether a page in flight ended the burst.  Not
+// inlined: one copy a kernel, out of the access loop's way.
+template <int POLICY, bool TREE, bool QUOTAS>
+__device__ __noinline__ int evict_round(
+    int k, double clock0, int counter0, double* arrival, int* stamp,
+    unsigned char* pfu, int* freq, const unsigned* prio, int* counts,
+    const int* lv_off, u64* bound, int scan_end, int bnd, int* evicted0,
+    bool* retouched) {
+  __shared__ int hist[ROUND_BINS];
+  __shared__ int s_warp[2 * NWARPS];
+  __shared__ u64 s_least[NWARPS];
+  // thread 0's clock and counter; a pass's bin of the k-th key, by pass
+  // parity (a thread still reading one pass's is past the next pass's
+  // first barrier only after its read)
+  __shared__ struct {
+    double clock;
+    int counter, bin[2], excl[2], cnt[2];
+  } sh;
+  const double INF = __longlong_as_double(0x7ff0000000000000LL);
+  const int tid = threadIdx.x, wl = tid & 31, warp = tid >> 5;
+  const int n_c = (scan_end + ROOT_PAGES - 1) / ROOT_PAGES;
+  if (tid == 0) {
+    sh.clock = clock0;
+    sh.counter = counter0;
+  }
+  for (int b = tid; b < ROUND_BINS; b += THREADS) hist[b] = 0;
+  // 1. selection over [lo, hi], below: the keys under lo (all victims)
+  u64 lo = ~0ULL;
+  for (int c = tid; c < n_c; c += THREADS) lo = bound[c] < lo ? bound[c] : lo;
+  lo = block_min(lo, s_least);
+  const u64 lo0 = lo;
+  u64 hi = ~0ULL, top = ~0ULL;
+  u64 first = ~0ULL;   // the least key in flight (pass 0 reads every key)
+  int below = 0;
+  bool log_bins = true;
+  const double clock = sh.clock;
+  for (int pass = 0; pass < ROUND_PASSES; ++pass) {
+    const int shift = log_bins ? 0 : max(0, 54 - __clzll((long long)(hi - lo)));
+    u64 fly = ~0ULL;
+    auto count = [&](int, double a, u64 key) {
+      const bool in = a < INF && key >= lo && key <= hi;
+      const int bin = in ? round_bin(key - lo, log_bins, shift) : 0;
+      const unsigned m = __ballot_sync(FULL, in);
+      if (in) {
+        const unsigned peers = __match_any_sync(m, bin);
+        if ((peers & ((1u << wl) - 1u)) == 0) atomicAdd(&hist[bin], __popc(peers));
+        if (a > clock && key < fly) fly = key;
+      }
+    };
+    // the first pass reads every chunk that holds a page, and leaves its
+    // bound exact, so the later passes read only the chunks that hold
+    // keys of their interval
+    if (pass == 0)
+      visit_chunks<POLICY, true>(arrival, stamp, freq, prio, bound, scan_end,
+                                 hi, count);
+    else
+      visit_chunks<POLICY>(arrival, stamp, freq, prio, bound, scan_end, hi,
+                           count);
+    if (pass == 0) {
+      fly = warp_min(fly);
+      if (wl == 0) s_least[warp] = fly;
+    }
+    const int par = pass & 1;
+    if (tid == 0) sh.bin[par] = -1;
+    block_sync();
+    // the bin of the k-th key: a block scan of the bins, two a thread,
+    // each thread zeroing its own for the next pass
+    const int h0 = hist[2 * tid], h1 = hist[2 * tid + 1];
+    hist[2 * tid] = 0;
+    hist[2 * tid + 1] = 0;
+    int incl = h0 + h1;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (wl >= off) incl += v;
+    }
+    if (wl == 31) s_warp[warp] = incl;
+    block_sync();
+    int before = below + incl - h0 - h1;
+    for (int w = 0; w < warp; ++w) before += s_warp[w];
+    if (pass == 0)
+      for (int w = 0; w < NWARPS; ++w) first = s_least[w] < first ? s_least[w] : first;
+    if (before < k && k <= before + h0) {
+      sh.bin[par] = 2 * tid;
+      sh.excl[par] = before - below;
+      sh.cnt[par] = h0;
+    } else if (before + h0 < k && k <= before + h0 + h1) {
+      sh.bin[par] = 2 * tid + 1;
+      sh.excl[par] = before + h0 - below;
+      sh.cnt[par] = h1;
+    }
+    block_sync();
+    const int b = sh.bin[par], excl = sh.excl[par], cnt = sh.cnt[par];
+    if (b < 0) {   // no such bin: the keys were not as counted (a guard)
+      top = hi;
+      break;
+    }
+    u64 dlo, dhi;
+    bool single;
+    if (log_bins && b < 64) {
+      dlo = dhi = (u64)b;
+      single = true;
+    } else if (log_bins) {
+      const int e = 6 + (b - 64) / 16, m = (b - 64) & 15;
+      dlo = (u64)(16 + m) << (e - 4);
+      dhi = ((u64)(17 + m) << (e - 4)) - 1;   // wraps to ~0 at the top
+      single = false;
+    } else {
+      dlo = (u64)b << shift;
+      dhi = dlo + ((1ULL << shift) - 1);
+      single = shift == 0;
+    }
+    top = dhi > hi - lo ? hi : lo + dhi;
+    // a key in flight in a bin below the k-th key's: the burst stops there,
+    // after every key below it
+    if (pass == 0 && first != ~0ULL && round_bin(first - lo0, true, 0) < b) {
+      top = first;
+      break;
+    }
+    if (below + excl + cnt == k || single) break;
+    below += excl;
+    lo += dlo;
+    hi = top;
+    log_bins = false;
+  }
+  // 2. stop: the least key in flight, if it is a victim
+  const u64 stop = first <= top ? first : ~0ULL;
+  // 3. eviction below the stop, the retouch at it
+  int ne = 0, ne0 = 0;
+  bool rt = false;
+  const int counter = sh.counter;
+  visit_chunks<POLICY>(arrival, stamp, freq, prio, bound, scan_end, top,
+                       [&](int i, double a, u64 key) {
+    const bool res = a < INF && key <= top;
+    const bool ev = res && key < stop;
+    if (ev) {
+      arrival[i] = INF;
+      pfu[i] = 0;
+      ne += 1;
+      if (QUOTAS) ne0 += i < bnd;
+    } else if (res && key == stop) {
+      stamp[i] = counter;
+      if (POLICY == POL_HOTCOLD) freq[i] += 1;
+      rt = true;
+    }
+    if (TREE) {
+      // the node counts, warp-aggregated: a row's 32 slots share one node
+      // at every level >= 1, and two at level 0
+      const unsigned b = __ballot_sync(FULL, ev);
+      if (wl == 0 || wl == 16) {
+        const int c0 = __popc(wl == 0 ? (b & 0xffffu) : (b >> 16));
+        if (c0) atomicSub(&counts[lv_off[0] + (i >> 4)], c0);
+      }
+      if (wl == 0 && b)
+        for (int lv = 1; lv <= TREE_LEVELS; ++lv)
+          atomicSub(&counts[lv_off[lv] + (i >> (4 + lv))], __popc(b));
+    }
+  });
+  ne = warp_sum(ne);
+  if (QUOTAS) ne0 = warp_sum(ne0);
+  const unsigned rt_w = __ballot_sync(FULL, rt);
+  if (wl == 0) {
+    s_warp[warp] = ne;
+    s_warp[NWARPS + warp] = QUOTAS ? ne0 : 0;
+    s_least[warp] = rt_w ? 1 : 0;
+  }
+  block_sync();   // every slot of this round read: the bounds may rise
+  // every key left is >= the stop (a retouch only raises a key), or > top
+  const u64 lb = stop != ~0ULL ? stop : top + 1;
+  for (int c = tid; c < n_c; c += THREADS)
+    if (bound[c] != ~0ULL && bound[c] < lb) bound[c] = lb;
+  int j = 0, j0 = 0;
+  bool any_rt = false;
+  for (int w = 0; w < NWARPS; ++w) {
+    j += s_warp[w];
+    j0 += s_warp[NWARPS + w];
+    any_rt = any_rt || s_least[w];
+  }
+  block_sync();
+  *evicted0 = j0;
+  *retouched = any_rt;
+  return j;
+}
 
 // Per-tenant quota allowances (repro.uvm.eviction.Tenancy.allowed in int32):
 // true while a tenant is over its allowance; *tenant0 = whether tenant 0 is
@@ -327,12 +667,44 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
   int issued = 0, used = 0, migrated = 0, evicted = 0, wbacks = 0, th0 = 0;
   int rc0 = 0;   // quota lanes: resident pages of tenant 0
   // the victim search (warp 0): the chunk it starts at (the last one's)
-  // and (thread 0) the chunks it scanned
+  // and (thread 0) the chunks it scanned; thread 0: the rounds and the
+  // evictions they made
   int cur = 0;
-  long long scans = 0;
+  long long scans = 0, rounds = 0, round_evictions = 0;
+  // thread 0's tail of a round of j evictions (design note, step 4)
+  auto round_tail = [&](int j, int j0, bool retouched) {
+    resident -= j;
+    if (QUOTAS) rc0 -= j0;
+    // the writebacks of every second eviction, counted on from the last
+    const int w = (evicted + j) / 2 - evicted / 2;
+    evicted += j;
+    wbacks += w;
+    for (int e = 0; e < w; ++e) pcie_free = add_rn(pcie_free, page_tx);
+    if (retouched) counter += 1;
+    rounds += 1;
+    round_evictions += j;
+  };
+  // demand and learned lanes: warps 1-15 have no per-access block phase;
+  // they wait at a barrier until warp 0 calls them to a round, or releases
+  // them at the lane's end (burst 0)
+  constexpr bool parked = !(tree || oracle);
+  if (parked && tid >= 32) {
+    for (;;) {
+      block_sync();
+      const int k = sh.burst;
+      if (k == 0) break;
+      int j0;
+      bool rt;
+      evict_round<POLICY, false, QUOTAS>(
+          k, 0.0, 0, arrival, stamp, pfu, freq, prio, counts, lv_off, bound,
+          scan_end, bnd, &j0, &rt);
+    }
+  }
 
-  for (int t = 0; t < n; ++t) {
+  const int n_own = parked && tid >= 32 ? 0 : n;   // the parked warps: done
+  for (int t = 0; t < n_own; ++t) {
     bool need_victim = false, faulted = false;
+    int added = 0;   // tree, oracle: the pages the block phase inserted
     if (tid == 0) {
       const int p = lp[t];
       clock = add_rn(clock, cpa);
@@ -458,6 +830,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         sh.clock = clock;
         sh.pcie_free = pcie_free;
         sh.counter = counter;
+        sh.res[t & 1] = resident;
       }
     }
 
@@ -487,6 +860,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         pend = pend || ex;
         emit = emit || ex;
       }
+      added = k;
       if (k > 0) {   // uniform over the block
         const double ex_ready = add_rn(add_rn(sh.clock, pfo), extra_lat);
         const double ex_start = fmax(sh.pcie_free, ex_ready);
@@ -550,6 +924,7 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
         const int pre = block_prefix(nonres, s_warp, &total);
         const int k = total < ORACLE_MAX_EXTRAS ? total : ORACLE_MAX_EXTRAS;
         if (k == 0) continue;   // uniform over the block
+        added += k;
         const double ex_ready = add_rn(add_rn(sh.clock, pfo), extra_lat);
         const double ex_start = fmax(sh.pcie_free, ex_ready);
         const double end = add_rn(ex_start, mul_rn((double)k, page_tx));
@@ -608,13 +983,27 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
       need_victim = next_victim(resident, rc0);
     }
 
-    // eviction under oversubscription: warp 0 searches the victim over
+    // eviction under oversubscription: warp 0 searches each victim over
     // the chunk bounds and thread 0 evicts it, with no block barrier (the
-    // other warps wait at the next access's block phase, or the end); an
-    // in-flight victim is retouched at MRU and ends the loop
+    // other warps wait at the next access's block phase, at their parking
+    // barrier, or at the end); an in-flight victim is retouched at MRU and
+    // ends the burst.  A burst of 2 K1_ROUND_MIN pages or more (never one
+    // of a split quota lane) that has taken K1_ROUND_MIN victims so, none
+    // in flight, takes the rest in one round of the whole block.
+    int burst = 0;   // the pages over capacity, uniform over the block
+                     // (tree, oracle) or over warp 0 (demand, learned)
+    if (!parked) {
+      if (!split && cap >= 0) burst = sh.res[t & 1] + added - cap;
+    } else if (tid < 32) {
+      __syncwarp();   // thread 0's insertions are visible
+      burst = __shfl_sync(FULL, split || cap < 0 ? 0 : resident - cap, 0);
+    }
+    const bool may_round = burst >= 2 * K1_ROUND_MIN;
     if (tid < 32) {
       __syncwarp();   // thread 0's insertions and range are visible
-      while (__shfl_sync(FULL, need_victim, 0)) {
+      int taken = 0;   // the victims this burst's searches evicted
+      while (__shfl_sync(FULL, need_victim, 0) &&
+             !(may_round && taken == K1_ROUND_MIN)) {
         const int ev_lo = split ? sh.ev_lo : 0;
         const int ev_hi = split ? sh.ev_hi : scan_end;
         const int c_lo = ev_lo / ROOT_PAGES;
@@ -694,8 +1083,30 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
           }
         }
         __syncwarp();   // thread 0's stores and range are visible
+        taken += 1;
+      }
+      if (tid == 0 && may_round) sh.burst = need_victim ? resident - cap : 0;
+    }
+    if (may_round) {   // uniform over the block (tree, oracle) or warp 0
+      if (parked)
+        __syncwarp();
+      else
+        block_sync();   // warp 0's searches are done
+      const int k = sh.burst;
+      if (k > 0) {
+        if (parked) block_sync();   // warp 0 calls the parked warps
+        int j0;
+        bool rt;
+        const int j = evict_round<POLICY, tree, QUOTAS>(
+            k, clock, counter, arrival, stamp, pfu, freq, prio, counts,
+            lv_off, bound, scan_end, bnd, &j0, &rt);
+        if (tid == 0) round_tail(j, j0, rt);
       }
     }
+  }
+  if (parked && tid < 32) {   // warp 0 releases the parked warps
+    if (tid == 0) sh.burst = 0;
+    block_sync();
   }
 
   if (tid == 0) {
@@ -718,8 +1129,11 @@ lane_replay_kernel(const int* __restrict__ pages, const int* __restrict__ preds,
     o[8] = mul_rn((double)(migrated + wbacks), page_size);
     o[9] = th0;
     if (lane_info) {
-      lane_info[2 * lane] = scans;
-      lane_info[2 * lane + 1] = (long long)(global_ns() - t_begin);
+      long long* li = lane_info + (size_t)lane * N_LANE_INFO;
+      li[0] = scans;
+      li[1] = (long long)(global_ns() - t_begin);
+      li[2] = rounds;
+      li[3] = round_evictions;
     }
   }
 }

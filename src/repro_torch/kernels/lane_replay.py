@@ -21,8 +21,10 @@ boundary and the quotas q0, q1, q0 = -1 for shared capacity).  Output:
 step-clock batches the (L, steps_len) float64 window clocks.
 
 The kernel finds each victim over per-lane bounds of its chunks of
-``ROOT_PAGES`` slots (see ``csrc/lane_replay.cu``); the plain version's
-``argmin`` over the span is the spec it is held to.
+``ROOT_PAGES`` slots, and takes the rest of a long burst, after its first
+``K1_ROUND_MIN`` victims, in one block-wide selection round (see
+``csrc/lane_replay.cu``); the plain version's ``argmin`` over the span, one
+victim at a time, is the spec it is held to.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ MAX_LANE_STEPS = 1 << 16
 #: the random victim key is (prio << 21) | slot: every state slot (span +
 #: the oracle trash slot) must fit the low 21 bits
 RANDOM_KEY_SLOTS = 1 << 21
+#: the columns of K1's optional ``lane_info`` output, one row a lane:
+#: warp-search chunk scans, nanoseconds on the card's global timer,
+#: selection rounds, and the evictions those rounds made
+LANE_INFO_FIELDS = ("scans", "ns", "rounds", "round_evictions")
 _IMAX = 2 ** 31 - 1
 _IMAX64 = 2 ** 63 - 1
 _INF = math.inf
@@ -392,9 +398,10 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
     bound), and ``steps_len``; ``quotas`` builds the per-tenant quota
     eviction for the lanes whose ``iparams[:, 7]`` (q0) is >= 0, whose
     tenant boundary must lie on a chunk edge (a multiple of ``ROOT_PAGES``).
-    ``lane_info``, an (L, 2) int64 tensor on the card, receives each lane's
-    victim-search chunk scans and its nanoseconds on the card's global
-    timer (the kernel only: the plain version has no chunks)."""
+    ``lane_info``, an (L, 4) int64 tensor on the card, receives each lane's
+    ``LANE_INFO_FIELDS``: its warp-search chunk scans, its nanoseconds on
+    the card's global timer, its selection rounds and their evictions (the
+    kernel only: the plain version has neither chunks nor rounds)."""
     _check_kind(family, policy, span, lookahead, steps_len)
     if pages.device.type == "cpu":
         if lane_info is not None:
@@ -429,10 +436,11 @@ def lane_replay(pages: torch.Tensor, preds: Optional[torch.Tensor],
         raise ValueError(f"lane_replay: bad span {span} / buf_len {buf_len}")
     if lane_info is not None and (
             lane_info.device != pages.device or lane_info.dtype != torch.int64
-            or tuple(lane_info.shape) != (n_lanes, 2)
+            or tuple(lane_info.shape) != (n_lanes, len(LANE_INFO_FIELDS))
             or not lane_info.is_contiguous()):
         raise ValueError(f"lane_replay: lane_info must be a contiguous int64 "
-                         f"tensor of shape ({n_lanes}, 2) on {pages.device}")
+                         f"tensor of shape ({n_lanes}, "
+                         f"{len(LANE_INFO_FIELDS)}) on {pages.device}")
     if quotas:
         check_quota_boundaries(iparams.cpu())
     ft_len = ft.shape[1] if family == "oracle" else 0

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import spans
-from repro_torch.kernels.lane_replay import (MAX_LANE_STEPS,
+from repro_torch.kernels.lane_replay import (LANE_INFO_FIELDS,
+                                             MAX_LANE_STEPS,
                                              MAX_ORACLE_LOOKAHEAD,
                                              N_FPARAMS, N_IPARAMS,
                                              STAT_FIELDS, lane_replay)
@@ -165,6 +166,32 @@ def decline_reason(request: ReplayRequest) -> Optional[str]:
     if lo < 0 or hi - lo > min(request.max_span_pages, MAX_LANE_SPAN_PAGES):
         return f"page span [{lo}, {hi}) outside the lane ceiling"
     return None
+
+
+def lane_info_buffer(n_lanes: int, device) -> torch.Tensor:
+    """A zeroed ``lane_info`` for K1: one row a lane, one int64 column for
+    each of ``LANE_INFO_FIELDS``."""
+    return torch.zeros((n_lanes, len(LANE_INFO_FIELDS)), dtype=torch.int64,
+                       device=device)
+
+
+def count_lane_info(requests: Sequence[ReplayRequest], info: np.ndarray,
+                    raw: np.ndarray) -> None:
+    """Add one batch to the traced pass's ``k1.lane_*`` counters: ``info``
+    is K1's ``lane_info`` and ``raw`` its stats, both for the real lanes
+    (``requests``) only.  ``k1.lane_evictions`` sums the lanes' evictions,
+    of which rounds made ``k1.lane_round_evictions``."""
+    col = {f: info[:, i] for i, f in enumerate(LANE_INFO_FIELDS)}
+    spans.count("k1.lane_accesses",
+                sum(len(r.trace.pages) for r in requests))
+    spans.count("k1.lane_scans", int(col["scans"].sum()))
+    spans.count("k1.lane_ns_sum", int(col["ns"].sum()))
+    spans.count("k1.lane_ns_longest_x_lanes",
+                int(col["ns"].max()) * len(requests))
+    spans.count("k1.lane_rounds", int(col["rounds"].sum()))
+    spans.count("k1.lane_round_evictions", int(col["round_evictions"].sum()))
+    spans.count("k1.lane_evictions",
+                int(raw[:, STAT_FIELDS.index("pages_evicted")].sum()))
 
 
 @dataclasses.dataclass
@@ -368,14 +395,14 @@ class CudaReplayBackend(ReplayBackend):
                       ) -> List[UVMStats]:
         """Replay one homogeneous lane batch: pack, launch, unpack.  While
         a pass is traced on the card, K1 also writes each lane's chunk
-        scans and nanoseconds (``lane_info``), which go to the pass's
-        ``k1.lane_*`` counters (padding lanes left out)."""
+        scans, nanoseconds, rounds and round evictions (``lane_info``),
+        which go to the pass's ``k1.lane_*`` counters (padding lanes left
+        out)."""
         batch = self.pack_batch(requests)
         args = batch.kernel_args(self.device)
         info = None
         if spans.on() and args["pages"].is_cuda:
-            info = torch.zeros((len(batch.pages), 2), dtype=torch.int64,
-                               device=args["pages"].device)
+            info = lane_info_buffer(len(batch.pages), args["pages"].device)
             args["lane_info"] = info
         raw = lane_replay(**args)
         raw_steps = None
@@ -387,12 +414,7 @@ class CudaReplayBackend(ReplayBackend):
             if info is not None:
                 info = info[:len(requests)].cpu().numpy()
         if info is not None:
-            spans.count("k1.lane_accesses",
-                        sum(len(r.trace.pages) for r in requests))
-            spans.count("k1.lane_scans", int(info[:, 0].sum()))
-            spans.count("k1.lane_ns_sum", int(info[:, 1].sum()))
-            spans.count("k1.lane_ns_longest_x_lanes",
-                        int(info[:, 1].max()) * len(requests))
+            count_lane_info(requests, info, raw[:len(requests)])
         return self._unpack(requests, raw, raw_steps)
 
     @spans.spanned("cuda_backend.unpack")

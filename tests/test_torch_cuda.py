@@ -199,14 +199,26 @@ def test_k1_matches_its_plain_version(device, family, policy):
     assert got[3].abs().sum() == 0
 
 
-def _random_lanes(family, seed, span, pages_hi, cap, tenants=None):
+def _random_lanes(family, seed, span, pages_hi, cap, tenants=None,
+                  runs=False):
     """Three lanes of uniform random pages below ``pages_hi`` (a fourth,
     padding lane replays nothing) at capacity ``cap``; ``tenants`` =
-    (boundary, q0, q1) makes them quota lanes.  Returns the positional
-    arguments and keywords of ``lane_replay_plain``."""
+    (boundary, q0, q1) makes them quota lanes; ``runs`` makes each lane
+    sequential runs of 64-1023 pages from random starts instead.  Returns
+    the positional arguments and keywords of ``lane_replay_plain``."""
     rng = np.random.default_rng(seed)
     n_lanes, t_max = 4, 2048
-    pages = rng.integers(0, pages_hi, (n_lanes, t_max)).astype(np.int32)
+    if runs:
+        pages = np.empty((n_lanes, t_max), dtype=np.int32)
+        for lane in range(n_lanes):
+            seq, n = [], 0
+            while n < t_max:
+                start, length = rng.integers(0, pages_hi), rng.integers(64, 1024)
+                seq.append((start + 8 * np.arange(length)) % pages_hi)
+                n += length
+            pages[lane] = np.concatenate(seq)[:t_max]
+    else:
+        pages = rng.integers(0, pages_hi, (n_lanes, t_max)).astype(np.int32)
     preds = np.where(rng.random((n_lanes, t_max)) < 0.7,
                      np.roll(pages, -8, axis=1), -1).astype(np.int32)
     fparams = np.tile(np.array([1400.2, 384.9, 66645.0, 100.0, 100.0, 600.0,
@@ -236,18 +248,22 @@ def _random_lanes(family, seed, span, pages_hi, cap, tenants=None):
     return args, kw
 
 
-#: K1's victim search at its edges: a span that is no multiple of the
-#: 512-slot chunks (3,008 pages: whole 16-page blocks, so every family but
-#: the tree's, whose faults fill whole root windows); quota lanes whose
-#: tenant boundary is a chunk edge (1024); a capacity of 2 pages, so that
-#: most rounds end at an in-flight victim (the page that just faulted, or
-#: its prefetched extras); hotcold's random retouches tie in freq
-#: throughout
+#: K1's victim search and selection rounds at their edges: a span that is
+#: no multiple of the 512-slot chunks (3,008 pages: whole 16-page blocks,
+#: so every family but the tree's, whose faults fill whole root windows);
+#: quota lanes whose tenant boundary is a chunk edge (1024); a capacity of
+#: 2 pages, so that most bursts end at an in-flight victim (the page that
+#: just faulted, or its prefetched extras); hotcold's random retouches tie
+#: in freq throughout; and bursts: sequential runs over 16 root windows at
+#: a quarter of them resident, so that a tree fault's escalation brings in
+#: up to a root window and evicts hundreds of pages in one round, some
+#: stopped midway by an in-flight victim
 K1_SEARCH_CASES = {
     "span-3008": dict(span=3008, pages_hi=3008, cap=900),
     "quota-edge": dict(span=4096, pages_hi=3000, cap=900,
                        tenants=(1024, 400, 400)),
     "in-flight": dict(span=1024, pages_hi=1024, cap=2),
+    "burst": dict(span=4096, pages_hi=4096, cap=900, runs=True),
 }
 
 
@@ -257,22 +273,28 @@ K1_SEARCH_CASES = {
 @pytest.mark.parametrize("policy", POLICIES)
 def test_k1_victim_search_edges_match_its_plain_version(device, case,
                                                         family, policy):
-    """Every victim K1's chunk search picks is the plain version's argmin
-    over the span: the stats are equal, and each lane scanned at least one
-    chunk per eviction."""
+    """Every victim K1's chunk search or selection round picks is the plain
+    version's argmin over the span: the stats are equal, each lane scanned
+    at least one chunk per eviction its rounds did not make, and its rounds
+    made at most its evictions."""
     args, kw = _random_lanes(family, FAMILIES.index(family),
                              **K1_SEARCH_CASES[case])
     want = lane_replay_plain(*args, policy=policy, **kw)
     dev = [a.to(device) if torch.is_tensor(a) else a for a in args]
     dev_kw = {k: (v.to(device) if torch.is_tensor(v) else v)
               for k, v in kw.items()}
-    info = torch.zeros((4, 2), dtype=torch.int64, device=device)
+    info = torch.zeros((4, 4), dtype=torch.int64, device=device)
     got = lane_replay(*dev, 17, policy=policy, lane_info=info, **dev_kw)
     assert torch.equal(got.cpu(), want)
     evictions = want[:, 7].long()
     assert evictions[:3].min() > 0
     info = info.cpu()
-    assert (info[:, 0] >= evictions).all() and (info[:3, 1] > 0).all()
+    scans, round_evictions = info[:, 0], info[:, 3]
+    assert (scans >= evictions - round_evictions).all()
+    assert ((0 <= round_evictions) & (round_evictions <= evictions)).all()
+    assert (info[:3, 1] > 0).all()
+    if case == "burst" and family == "tree":
+        assert (info[:3, 2] > 0).all() and (round_evictions[:3] > 0).all()
 
 
 #: golden tree lanes under lru: three, so the batch has a padding lane
@@ -310,14 +332,20 @@ def test_k1_lane_info_fills_a_traced_pass(device, monkeypatch):
                              ProfilerActivity.CUDA]):
         traced = spans.records_pass(backend._replay_batch)(requests())
     info = infos[-1].cpu()
-    assert tuple(info.shape) == (4, 2)
+    assert tuple(info.shape) == (4, 4)
     scans, ns = info[:3, 0], info[:3, 1]
+    rounds, round_evictions = info[:3, 2], info[:3, 3]
     assert (ns > 0).all() and (scans >= 0).all()
+    evictions = sum(st.pages_evicted for st in untraced)
+    assert 0 <= int(round_evictions.sum()) <= evictions
     counters = spans.passes()[-1]["counters"]
     assert {k: v for k, v in counters.items() if k.startswith("k1.")} == {
         "k1.lane_accesses": sum(len(r.trace.pages) for r in requests()),
         "k1.lane_scans": int(scans.sum()), "k1.lane_ns_sum": int(ns.sum()),
-        "k1.lane_ns_longest_x_lanes": int(ns.max()) * 3}
+        "k1.lane_ns_longest_x_lanes": int(ns.max()) * 3,
+        "k1.lane_rounds": int(rounds.sum()),
+        "k1.lane_round_evictions": int(round_evictions.sum()),
+        "k1.lane_evictions": evictions}
     for a, b in zip(traced, untraced):
         assert G.stats_to_dict(a) == G.stats_to_dict(b)
         assert (a.cycles, a.pcie_bytes) == (b.cycles, b.pcie_bytes)
@@ -333,6 +361,22 @@ def test_table10_tree_rows_equal_the_legacy_engine(device):
         assert row["hit_U"] == want.hit_rate
         assert row["simulated_inst"] == trace.n_instructions
         assert 0.0 < row["hit_R"] <= 1.0
+
+
+@pytest.mark.parametrize("bench", ["Hotspot", "NW"])
+def test_oversub_tree_lru_rows_equal_the_legacy_engine(device, bench):
+    """Two of the oversubscribed sweep's longest tree lanes under lru at
+    half the working set (636,973 and 370,062 evictions, nearly all in
+    selection rounds) equal the legacy engine's rows bit for bit."""
+    cells = sweep.expand_grid([bench], ["tree"], device_fracs=[0.5],
+                              evictions=["lru"])
+    got = sweep.run_sweep(cells, device=device)
+    want = sweep.run_sweep([dataclasses.replace(c, engine="legacy")
+                            for c in cells], device="cpu")
+    assert got[0]["backend"] == "cuda" and want[0]["backend"] == "legacy"
+    skip = {"engine", "backend", "seconds"}
+    assert ({k: v for k, v in got[0].items() if k not in skip}
+            == {k: v for k, v in want[0].items() if k not in skip})
 
 
 @pytest.mark.parametrize("b,n,d", [(4096, 30, 12), (2, 256, 64),

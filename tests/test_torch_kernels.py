@@ -3,9 +3,10 @@ against the reference's Pallas kernels in interpret mode and its ``ref``
 oracles, at the reference's test shapes and types and at the predictor's
 shapes, with the tolerances of ``tests/test_kernels.py``; the port's
 device-side int4 packer against the reference's ``fake_quant_tensor``;
-which variant of K3 and which tiling of K2 and K4 each shape takes; and a
-model of K1's victim search over chunk bounds against ``argmin`` over the
-span, the rule of K1's plain version.
+which variant of K3 and which tiling of K2 and K4 each shape takes; and
+models of K1's victim search over chunk bounds and of its selection round
+against ``argmin`` over the span, one victim at a time, the rule of K1's
+plain version.
 (The CUDA kernels themselves are held against these plain versions on the
 card, in ``test_torch_cuda.py``.)"""
 import jax.numpy as jnp
@@ -546,6 +547,168 @@ def test_chunk_search_picks_the_argmin_victim(policy, span, tenants):
             evictions += 1
     assert evictions > 300
     assert model.scans < 4 * evictions
+
+
+ROUND_BINS = 1024           # the kernel's ROUND_BINS
+ROUND_PASSES = 8
+
+
+def _round_bin(d, log_bins, shift):
+    """The kernel's ``round_bin``: logarithmic bins of d = key - lo (d
+    itself below 64, then 16 a power of two), or linear ones."""
+    if not log_bins:
+        return d >> shift
+    if d < 64:
+        return d
+    e = d.bit_length() - 1
+    return 64 + (e - 6) * 16 + ((d >> (e - 4)) & 15)
+
+
+def selection_round(model, k, scan_end, resident, inflight, stamp, freq,
+                    prio):
+    """A model of K1's selection round (``csrc/lane_replay.cu``, steps
+    1-3) over the chunk bounds of ``model``: a radix select of the least
+    top with exactly k resident keys <= top (a pass reads only the chunks
+    whose bound is at most the interval's top; the first reads every key,
+    leaves each chunk's bound exact and finds the least key in flight,
+    which ends the select where its bin lies below the k-th key's), that
+    key as the stop if it is <= top, the bounds raised to it.  Returns the
+    victims in ascending key order, the retouched slot (None) and the
+    passes."""
+    n_c = -(-scan_end // ROOT_PAGES)
+    # the resident slots' keys, which no eviction of the round changes
+    keys = {i: model.key(i, stamp, freq, prio)
+            for i in np.flatnonzero(resident[:scan_end]).tolist()}
+
+    def visit(hi):
+        return [(i, key) for i, key in keys.items()
+                if model.bound[i // ROOT_PAGES] <= hi]
+    lo, hi, top = min(model.bound[:n_c]), _NONE, _NONE
+    lo0, below, log_bins = lo, 0, True
+    first = min((key for i, key in keys.items() if inflight[i]),
+                default=_NONE)
+    model.bound[:n_c] = [_NONE] * n_c
+    for i, key in keys.items():
+        model.bound[i // ROOT_PAGES] = min(model.bound[i // ROOT_PAGES], key)
+    for passes in range(1, ROUND_PASSES + 1):
+        shift = 0 if log_bins else max(0, (hi - lo).bit_length() - 10)
+        hist = [0] * ROUND_BINS
+        for _, key in visit(hi):
+            if lo <= key <= hi:
+                hist[_round_bin(key - lo, log_bins, shift)] += 1
+        before = below
+        for b, h in enumerate(hist):
+            if before < k <= before + h:
+                break
+            before += h
+        else:
+            raise AssertionError("no bin holds the k-th key")
+        excl, cnt = before - below, hist[b]
+        if log_bins and b < 64:
+            dlo = dhi = b
+            single = True
+        elif log_bins:
+            e, m = 6 + (b - 64) // 16, (b - 64) % 16
+            dlo, dhi = (16 + m) << (e - 4), ((17 + m) << (e - 4)) - 1
+            single = False
+        else:
+            dlo = b << shift
+            dhi, single = dlo + (1 << shift) - 1, shift == 0
+        top = hi if dhi > hi - lo else lo + dhi
+        if (passes == 1 and first != _NONE
+                and _round_bin(first - lo0, True, 0) < b):
+            top = first
+            break
+        if below + excl + cnt == k or single:
+            break
+        below, lo, hi, log_bins = below + excl, lo + dlo, top, False
+    chosen = sorted((key, i) for i, key in visit(top) if key <= top)
+    assert len(chosen) <= k
+    stop = first if first <= top else _NONE
+    victims = [i for key, i in chosen if key < stop]
+    retouch = next((i for key, i in chosen if key == stop), None)
+    lb = stop if stop != _NONE else (top + 1) & _NONE
+    for c in range(n_c):
+        if model.bound[c] != _NONE and model.bound[c] < lb:
+            model.bound[c] = lb
+    return victims, retouch, passes
+
+
+@pytest.mark.parametrize("policy", ["lru", "random", "hotcold"])
+@pytest.mark.parametrize("span", [700, 3000, 4096])
+def test_selection_round_evicts_the_argmin_victims(policy, span):
+    """Insertions (single pages and root-window bursts stamped in rank
+    order, some in flight), retouches, warp searches and bursts of 1-600
+    evictions: each round evicts, in order, the victims that argmin picks
+    one at a time, and retouches the in-flight one that stops them; the
+    warp search still picks argmin's victim over the raised bounds."""
+    rng = np.random.default_rng(span + ("lru", "random",
+                                        "hotcold").index(policy))
+    stamp = np.zeros(span, dtype=np.int64)
+    freq = np.zeros(span, dtype=np.int64)
+    prio = np.zeros(span, dtype=np.int64)
+    resident = np.zeros(span, dtype=bool)
+    inflight = np.zeros(span, dtype=bool)
+    model = ChunkSearch(span, policy)
+    counter, rounds, stopped, max_passes = 0, 0, 0, 0
+    for _ in range(600):
+        op = rng.random()
+        if op < 0.5:                     # insert: a page, or a root burst
+            root = int(rng.integers(0, -(-span // ROOT_PAGES)))
+            idx = [i for i in range(root * ROOT_PAGES,
+                                    min(span, (root + 1) * ROOT_PAGES))
+                   if not resident[i] and rng.random() < 0.6]
+            for rank, i in enumerate(idx):
+                resident[i], inflight[i] = True, rng.random() < 0.05
+                stamp[i], freq[i] = counter + rank, 0
+                prio[i] = int(rng.integers(0, 2 ** 32))
+                model.insert(i, stamp, freq, prio)
+            counter += len(idx)
+        elif op < 0.7:                   # retouch resident pages; arrivals
+            live = np.flatnonzero(resident)
+            for i in rng.choice(live, min(len(live), 20), replace=False):
+                stamp[i] = counter
+                freq[i] += 1
+                counter += 1
+            inflight &= rng.random(span) < 0.5
+        elif op < 0.8:                   # a warp search
+            if resident.any():
+                want = _argmin_victim(policy, 0, span, resident, stamp, freq,
+                                      prio)
+                assert model.search(0, span, resident, stamp, freq,
+                                    prio) == want
+                resident[want] = False
+        else:                            # a burst of k over the capacity
+            n_res = int(resident.sum())
+            if not n_res:
+                continue
+            k = int(rng.integers(1, min(n_res, 600) + 1))
+            # argmin one victim at a time (numpy: the keys hold still)
+            want, want_rt = [], None
+            res = resident.copy()
+            iota = np.arange(span, dtype=np.int64)
+            key = {"random": (prio << 21) | iota,
+                   "hotcold": (freq << 32) | stamp}.get(policy, stamp)
+            for _ in range(k):
+                vi = int(np.argmin(np.where(res, key, _IMAX64)))
+                if inflight[vi]:
+                    want_rt = vi
+                    break
+                want.append(vi)
+                res[vi] = False
+            got, got_rt, passes = selection_round(
+                model, k, span, resident, inflight, stamp, freq, prio)
+            assert (got, got_rt) == (want, want_rt)
+            resident[got] = False
+            if got_rt is not None:
+                stamp[got_rt] = counter
+                freq[got_rt] += 1
+                counter += 1
+            rounds += 1
+            stopped += got_rt is not None
+            max_passes = max(max_passes, passes)
+    assert rounds > 50 and 0 < stopped < rounds
+    assert max_passes <= ROUND_PASSES
 
 
 def test_quota_boundaries_must_lie_on_chunk_edges():

@@ -8,6 +8,7 @@ import collections
 import json
 
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch import spans
@@ -23,7 +24,8 @@ SPANS = ("sweep.resolve_evictions", "sweep.prepare_cell",
          "cuda_backend.to_device", "cuda_backend.readback",
          "cuda_backend.unpack")
 K1_COUNTERS = ("k1.lane_accesses", "k1.lane_scans", "k1.lane_ns_sum",
-               "k1.lane_ns_longest_x_lanes")
+               "k1.lane_ns_longest_x_lanes", "k1.lane_rounds",
+               "k1.lane_round_evictions", "k1.lane_evictions")
 
 
 def _cells():
@@ -96,6 +98,39 @@ def test_two_traced_passes_leave_two_records(traced):
                 < rec["spans"]["sweep.prepare_cell"])
     assert (records[0]["counters"]["sweep.trace_scans"]
             == records[1]["counters"]["sweep.trace_scans"] > 0)
+
+
+def test_k1_lane_info_has_a_column_a_field():
+    """K1's ``lane_info`` is (L, 4): chunk scans, nanoseconds, rounds and
+    round evictions, a row a lane, zeroed before the launch."""
+    from repro_torch.kernels.lane_replay import LANE_INFO_FIELDS
+    assert LANE_INFO_FIELDS == ("scans", "ns", "rounds", "round_evictions")
+    info = cuda_backend.lane_info_buffer(5, "cpu")
+    assert tuple(info.shape) == (5, 4) and info.dtype == torch.int64
+    assert not info.any()
+
+
+def test_k1_lane_info_counts_into_the_pass_record():
+    """One batch's ``lane_info`` and stats (real lanes only) add to the
+    pass's K1 counters: sums of each column, the longest lane's time by
+    the lanes, and the stats' evictions."""
+    import numpy as np
+    from repro_torch.kernels.lane_replay import N_STATS, STAT_FIELDS
+
+    class Req:
+        def __init__(self, n):
+            self.trace = type("T", (), {"pages": np.zeros(n)})()
+    info = np.array([[10, 300, 2, 700], [0, 500, 0, 0], [4, 100, 1, 90]])
+    raw = np.zeros((3, N_STATS))
+    raw[:, STAT_FIELDS.index("pages_evicted")] = [720, 3, 95]
+    with profile(activities=[ProfilerActivity.CPU]):
+        spans.records_pass(cuda_backend.count_lane_info)(
+            [Req(100), Req(50), Req(7)], info, raw)
+    assert spans.passes()[-1]["counters"] == {
+        "k1.lane_accesses": 157, "k1.lane_scans": 14, "k1.lane_ns_sum": 900,
+        "k1.lane_ns_longest_x_lanes": 1500, "k1.lane_rounds": 3,
+        "k1.lane_round_evictions": 790, "k1.lane_evictions": 818}
+    assert set(spans.passes()[-1]["counters"]) == set(K1_COUNTERS)
 
 
 def test_trace_scans_count_each_whole_trace_pass(monkeypatch):
