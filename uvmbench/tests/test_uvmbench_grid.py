@@ -39,7 +39,7 @@ def test_seed_orders_the_grid_and_keeps_its_cells(bench):
 
 def test_cells_are_the_measured_ones(bench):
     assert [w["name"] for w in bench["workloads"]] == [
-        "paper11.oversub", "paper-pairs.shared"]
+        "paper11.oversub", "paper-pairs.shared", "smollm-360m.train"]
 
 
 def test_every_cell_names_files_that_exist(bench):

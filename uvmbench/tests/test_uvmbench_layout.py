@@ -109,6 +109,10 @@ def test_new_mix_cell_and_metric_are_found_without_an_edit(tmp_path):
         "record['passes']\n")
     bench["workloads"].append({"name": "paper11.tiny", "config": "paper11",
                                "traffic": "tiny", "chips": 1, "why": "x"})
+    # a sweep cell joins the sweep's end-to-end metric, and so its metrics
+    next(m for m in bench["end_to_end"]
+         if m["name"] == "sim_accesses_per_s")["workloads"].append(
+        "paper11.tiny")
     bench["per_layer"].append({"name": "rows.per_pass", "unit": "count",
                                "better": "higher", "source": "host_clock",
                                "layer": "sweep driver",
